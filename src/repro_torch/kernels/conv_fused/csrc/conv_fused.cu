@@ -1,0 +1,487 @@
+// Fused int8 conv kernels for Hopper (sm_90a), bound with ctypes.
+//
+// chain_kernel replaces the TPU kernel fused_chain_pallas
+// (src/repro/kernels/conv_fused/conv_fused.py, body _chain_kernel): one
+// lowered op chain (conv / max-avg-global pool / eltwise-add stages) runs as
+// one launch.  One block computes one (image, row tile, width tile, OC tile)
+// of the final output.  It loads its halo'd input window into shared memory
+// and walks the stages, ping-ponging between two shared buffers, so no
+// intermediate feature map touches device memory.  Intermediates are stored
+// as int8: every stage output is already clipped to [-128, 127], so int8
+// storage is exact and a quarter of int32's size.  Rows and columns outside
+// a stage's true extent are written as the next stage's pad identity (-128
+// before a max pool, else 0), which reproduces zero-padded convs, -128-padded
+// and ceil-extended max pools and count-include-pad avg pools exactly, at any
+// tile.  Image borders are padded virtually: a load outside the input reads
+// the first stage's pad identity, so the launcher never pads in memory.
+//
+// horizontal_kernel replaces fused_horizontal_pallas (same file, body
+// _horizontal_kernel): sibling convs over OC-stacked weights as one implicit
+// GEMM (M = output pixels, K = KH*KW*IC, N = sum of OC) with 64x64 output
+// tiles (32x32 when the grid would be small), K steps of 32 staged in shared
+// memory, __dp4a int8 dot products with int32 accumulation, and a
+// per-channel bias / shift / ReLU epilogue.
+//
+// What bounds them on an H100: at batch 1 the 51 launches of a GoogLeNet-224
+// image read and write about 14 MB (each launch's inputs, weights and output
+// once) and do about 1.6 G int8 MACs, so the card's bound is bytes: about
+// 4 us at 3.35 TB/s, against about 1.6 us of int8 tensor-core work at
+// 1,979 TOP/s.  These kernels run far above
+// that bound (PERF.md): they are issue- and latency-bound.  Conv stages use
+// __dp4a on CUDA cores (four output channels per thread in the chain kernel,
+// 4x4 or 2x2 micro-tiles in the horizontal one), weights are read through
+// L1/L2 rather than staged, and small grids leave SMs idle.  Tensor cores
+// (mma.sync / wgmma int8), TMA and pipelining are later work.
+//
+// Numerics are exactly the reference's int8_ops: int32 accumulation,
+// round-half-away-from-zero shifts (a negative shift is a left shift, done
+// through uint32_t), saturation to int8, and avg pools' sign-magnitude
+// rounded divide (abs taken before dividing).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#define MAX_STAGES 8
+#define HDR 32
+#define STG 32
+#define THREADS 256
+#define N_SM 132   // H100 SXM
+
+// One stage record; field order matches ops.chain_plan.
+struct Stage {
+  int type;     // 0 conv, 1 pool, 2 elt
+  int kh, kw, sh, sw, dh, dw;
+  int shift;    // conv: requantization shift; elt: shift of the main input
+  int relu;     // conv: ReLU; elt: ReLU of the sum
+  int pkind;    // pool: 0 max, 1 avg (global pools are avg over the window)
+  int cnt;      // pool: divisor
+  int s_side;   // elt: shift of the side input
+  int rows, cols, cin, cout;   // this block's output window and channels
+  int w_oc;     // conv: OC extent of the weight panel
+  int sliced;   // output channels are the block's OC tile
+  int q0, q1, true_h, true_w;  // padded-coordinate offset and true extent
+  int fout, foutw;             // window step between neighbouring tiles
+  int fill_next;               // pad identity of the next stage
+  int out_buf;                 // 0 buffer A, 1 buffer B, 2 the output
+  int side_h, side_w, side_sn, side_sh, side_sw;
+  int vec;      // conv: 0 scalar path, else lanes per 4-channel item
+};
+static_assert(sizeof(Stage) == STG * 4, "stage record size");
+
+struct Header {
+  int n_stages, N, H, W, C, x_sn, x_sh, x_sw;
+  int in_rows, in_cols, in_c, in_sliced, f_in, fw_in, q_in0, q_in1, fill0;
+  int th, tw, toc, n_h, n_w, n_k, OH, OW, OC, buf_b;
+  int unused[5];
+};
+static_assert(sizeof(Header) == HDR * 4, "header size");
+
+struct ChainParams {
+  Header h;
+  Stage st[MAX_STAGES];
+  const int8_t* x;
+  int8_t* out;
+  const int8_t* w[MAX_STAGES];
+  const int32_t* b[MAX_STAGES];
+  const int8_t* side[MAX_STAGES];
+};
+
+__device__ __forceinline__ int round_shift(int x, int s) {
+  if (s > 0) {
+    if (s > 40) return 0;  // |x| <= 2^31 rounds to 0
+    long long ax = x < 0 ? -(long long)x : (long long)x;
+    long long r = (ax + (1LL << (s - 1))) >> s;
+    return (int)(x < 0 ? -r : r);
+  }
+  int l = -s;
+  if (l >= 32) return 0;
+  return (int)((uint32_t)x << l);
+}
+
+__device__ __forceinline__ int clamp8(int v) {
+  return v < -128 ? -128 : (v > 127 ? 127 : v);
+}
+
+__device__ __forceinline__ int rounded_div(int s, int cnt) {
+  int a = s < 0 ? -s : s;
+  int q = (a + cnt / 2) / cnt;
+  return s < 0 ? -q : q;
+}
+
+// Writes one stage output value: to the output tensor for the last stage
+// (inside (OH, OW) only), else to the next window, masked to the next
+// stage's pad identity outside this stage's true extent.
+__device__ __forceinline__ void put(const ChainParams& p, const Stage& s,
+                                    int8_t* dst, int idx, int n, int j,
+                                    int jw, int r, int c, int ch, int v) {
+  const Header& h = p.h;
+  if (s.out_buf == 2) {
+    const int orow = j * h.th + r;
+    const int ocol = jw * h.tw + c;
+    if (orow < h.OH && ocol < h.OW)
+      p.out[(((long long)n * h.OH + orow) * h.OW + ocol) * h.OC + ch] =
+          (int8_t)v;
+  } else {
+    const int pr = j * s.fout + r;
+    const int pc = jw * s.foutw + c;
+    const bool valid = pr >= s.q0 && pr < s.q0 + s.true_h &&
+                       pc >= s.q1 && pc < s.q1 + s.true_w;
+    dst[idx] = (int8_t)(valid ? v : s.fill_next);
+  }
+}
+
+// A conv stage four output channels per thread: each weight load is one
+// word of four output channels.  With the input channels a multiple of four
+// (every conv but the one reading the 3-channel image), a step reads four
+// input channels as one word from shared memory and four weight words,
+// transposes the 4x4 bytes with __byte_perm and does four __dp4a: 16 MACs
+// per 5 loads instead of one MAC per 2 loads.  Otherwise a step reads one
+// input byte and one weight word for 4 MACs.  When the stage has fewer
+// (pixel, 4 channels) items than threads, S = s.vec lanes of one warp share
+// an item, each taking every S-th step over the input channels, and add
+// their partial sums with __shfl_down_sync: S times shorter serial chains of
+// dependent loads, which bound the small late layers.
+__device__ void conv_stage_vec(const ChainParams& p, int i, const Stage& s,
+                               const int8_t* src, int src_cols, int8_t* dst,
+                               int k, int j, int jw, int n) {
+  const int ch0 = s.sliced ? k * p.h.toc : 0;
+  const int S = s.vec;
+  const int co4 = s.cout / 4;
+  const int items = s.rows * s.cols * co4;
+  const bool cin4 = s.cin % 4 == 0;
+  const int8_t* w = p.w[i];
+  // every thread runs the same rounds, so each shuffle finds its whole warp
+  for (int base = 0; base < items * S; base += THREADS) {
+    const int t = base + threadIdx.x;
+    const int it = t / S;
+    const int part = t % S;     // S divides 32: an item's lanes share a warp
+    const bool live = it < items;
+    const int o = (it % co4) * 4;
+    const int rc = it / co4;
+    const int c = rc % s.cols;
+    const int r = rc / s.cols;
+    const int oc = ch0 + o;
+    int acc0 = 0, acc1 = 0, acc2 = 0, acc3 = 0;
+    if (live) {
+      for (int ki = 0; ki < s.kh; ++ki) {
+        for (int kj = 0; kj < s.kw; ++kj) {
+          const int8_t* sp = src + ((r * s.sh + ki * s.dh) * src_cols
+                                    + c * s.sw + kj * s.dw) * s.cin;
+          const int8_t* wk =
+              w + (long long)(ki * s.kw + kj) * s.cin * s.w_oc + oc;
+          if (cin4) {
+#pragma unroll 2
+            for (int ic = 4 * part; ic < s.cin; ic += 4 * S) {
+              const int a = *reinterpret_cast<const int*>(sp + ic);
+              const int8_t* wr = wk + (long long)ic * s.w_oc;
+              const int w0 = *reinterpret_cast<const int*>(wr);
+              const int w1 = *reinterpret_cast<const int*>(wr + s.w_oc);
+              const int w2 = *reinterpret_cast<const int*>(wr + 2 * s.w_oc);
+              const int w3 = *reinterpret_cast<const int*>(wr + 3 * s.w_oc);
+              const int lo01 = (int)__byte_perm(w0, w1, 0x5140);
+              const int hi01 = (int)__byte_perm(w0, w1, 0x7362);
+              const int lo23 = (int)__byte_perm(w2, w3, 0x5140);
+              const int hi23 = (int)__byte_perm(w2, w3, 0x7362);
+              acc0 = __dp4a(a, (int)__byte_perm(lo01, lo23, 0x5410), acc0);
+              acc1 = __dp4a(a, (int)__byte_perm(lo01, lo23, 0x7632), acc1);
+              acc2 = __dp4a(a, (int)__byte_perm(hi01, hi23, 0x5410), acc2);
+              acc3 = __dp4a(a, (int)__byte_perm(hi01, hi23, 0x7632), acc3);
+            }
+          } else {
+            for (int ic = part; ic < s.cin; ic += S) {
+              const int a = sp[ic];
+              const int wv = *reinterpret_cast<const int*>(
+                  wk + (long long)ic * s.w_oc);
+              acc0 += a * ((wv << 24) >> 24);   // sign-extended bytes 0..3
+              acc1 += a * ((wv << 16) >> 24);
+              acc2 += a * ((wv << 8) >> 24);
+              acc3 += a * (wv >> 24);
+            }
+          }
+        }
+      }
+    }
+    for (int off = S / 2; off > 0; off /= 2) {
+      acc0 += __shfl_down_sync(0xffffffffu, acc0, off, S);
+      acc1 += __shfl_down_sync(0xffffffffu, acc1, off, S);
+      acc2 += __shfl_down_sync(0xffffffffu, acc2, off, S);
+      acc3 += __shfl_down_sync(0xffffffffu, acc3, off, S);
+    }
+    if (!live || part != 0) continue;
+    const int32_t* b = p.b[i] + oc;
+    const int accs[4] = {acc0 + b[0], acc1 + b[1], acc2 + b[2], acc3 + b[3]};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      int v = round_shift(accs[q], s.shift);
+      if (s.relu) v = max(v, 0);
+      put(p, s, dst, (r * s.cols + c) * s.cout + o + q, n, j, jw, r, c,
+          oc + q, clamp8(v));
+    }
+  }
+}
+
+// Any stage, one output value per thread (a conv runs here only when its
+// output channels are not a multiple of four).
+__device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
+                             const int8_t* src, int src_cols, int8_t* dst,
+                             int k, int j, int jw, int n) {
+  const int ch0 = s.sliced ? k * p.h.toc : 0;
+  const int total = s.rows * s.cols * s.cout;
+  for (int idx = threadIdx.x; idx < total; idx += THREADS) {
+    const int o = idx % s.cout;
+    const int rc = idx / s.cout;
+    const int c = rc % s.cols;
+    const int r = rc / s.cols;
+    int v;
+    if (s.type == 0) {  // conv
+      const int8_t* wo = p.w[i] + ch0 + o;
+      int acc = p.b[i][ch0 + o];
+      for (int ki = 0; ki < s.kh; ++ki) {
+        for (int kj = 0; kj < s.kw; ++kj) {
+          const int8_t* sp = src + ((r * s.sh + ki * s.dh) * src_cols
+                                    + c * s.sw + kj * s.dw) * s.cin;
+          const int8_t* wk = wo + (long long)(ki * s.kw + kj) * s.cin * s.w_oc;
+          for (int ic = 0; ic < s.cin; ++ic)
+            acc += (int)sp[ic] * (int)wk[(long long)ic * s.w_oc];
+        }
+      }
+      v = round_shift(acc, s.shift);
+      if (s.relu) v = max(v, 0);
+      v = clamp8(v);
+    } else if (s.type == 1) {  // pool: channelwise, cin == cout
+      const int8_t* sp = src + (r * s.sh * src_cols + c * s.sw) * s.cin + o;
+      if (s.pkind == 0) {
+        int best = -128;
+        for (int ki = 0; ki < s.kh; ++ki)
+          for (int kj = 0; kj < s.kw; ++kj)
+            best = max(best, (int)sp[(ki * src_cols + kj) * s.cin]);
+        v = best;
+      } else {
+        int sum = 0;
+        for (int ki = 0; ki < s.kh; ++ki)
+          for (int kj = 0; kj < s.kw; ++kj)
+            sum += (int)sp[(ki * src_cols + kj) * s.cin];
+        v = clamp8(rounded_div(sum, s.cnt));
+      }
+    } else {  // elt: the input window has this stage's shape
+      const int a = src[idx];
+      const int sr = j * s.fout + r - s.q0;
+      const int sc = jw * s.foutw + c - s.q1;
+      int b = 0;
+      if (sr >= 0 && sr < s.side_h && sc >= 0 && sc < s.side_w)
+        b = p.side[i][(long long)n * s.side_sn + (long long)sr * s.side_sh
+                      + (long long)sc * s.side_sw + ch0 + o];
+      v = round_shift(a, s.shift) + round_shift(b, s.s_side);
+      if (s.relu) v = max(v, 0);
+      v = clamp8(v);
+    }
+    put(p, s, dst, idx, n, j, jw, r, c, ch0 + o, v);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+chain_kernel(const __grid_constant__ ChainParams p) {
+  extern __shared__ __align__(16) int8_t smem[];
+  int8_t* bufs[2] = {smem, smem + p.h.buf_b};
+  const Header& h = p.h;
+  int bid = blockIdx.x;
+  const int k = bid % h.n_k;
+  bid /= h.n_k;
+  const int jw = bid % h.n_w;
+  bid /= h.n_w;
+  const int j = bid % h.n_h;
+  const int n = bid / h.n_h;
+
+  {  // halo'd input window -> buffer A
+    const int total = h.in_rows * h.in_cols * h.in_c;
+    const int ch0 = h.in_sliced ? k * h.toc : 0;
+    const int8_t* xn = p.x + (long long)n * h.x_sn;
+    for (int idx = threadIdx.x; idx < total; idx += THREADS) {
+      const int ch = idx % h.in_c;
+      const int rc = idx / h.in_c;
+      const int c = rc % h.in_cols;
+      const int r = rc / h.in_cols;
+      const int xr = j * h.f_in + r - h.q_in0;
+      const int xc = jw * h.fw_in + c - h.q_in1;
+      int8_t v = (int8_t)h.fill0;
+      if (xr >= 0 && xr < h.H && xc >= 0 && xc < h.W)
+        v = xn[(long long)xr * h.x_sh + (long long)xc * h.x_sw + ch0 + ch];
+      bufs[0][idx] = v;
+    }
+  }
+  __syncthreads();
+
+  int src_buf = 0;
+  int src_cols = h.in_cols;
+  for (int i = 0; i < h.n_stages; ++i) {
+    const Stage& s = p.st[i];
+    const int8_t* src = bufs[src_buf];
+    int8_t* dst = s.out_buf == 2 ? nullptr : bufs[s.out_buf];
+    if (s.type == 0 && s.vec)
+      conv_stage_vec(p, i, s, src, src_cols, dst, k, j, jw, n);
+    else
+      stage_scalar(p, i, s, src, src_cols, dst, k, j, jw, n);
+    __syncthreads();
+    src_buf = s.out_buf;
+    src_cols = s.cols;
+  }
+}
+
+// ------------------------------------------------------------- horizontal
+#define HBK 32
+
+struct HorizontalParams {
+  int N, H, W, IC, x_sn, x_sh, x_sw, KH, KW, SH, SW, PH, PW, OH, OW, OC;
+  const int8_t* x;
+  const int8_t* w;      // (KH*KW*IC, OC): the HWIO panel, flattened
+  const int32_t* b;
+  const int32_t* shift;
+  const int32_t* relu;
+  int8_t* out;
+};
+
+// 16x16 threads, each computing a TM x TM micro-tile of a (16*TM)^2 output
+// tile: TM=4 (64x64) for large grids, TM=2 (32x32) when 64x64 tiles would
+// leave SMs idle.
+template <int TM>
+__global__ void __launch_bounds__(256)
+horizontal_kernel(const __grid_constant__ HorizontalParams p) {
+  constexpr int BM = 16 * TM;
+  __shared__ __align__(16) int8_t As[BM][HBK + 4];
+  __shared__ __align__(16) int8_t Bs[BM][HBK + 4];
+  const int M = p.N * p.OH * p.OW;
+  const int K = p.KH * p.KW * p.IC;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BM;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  int acc[TM][TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < TM; ++jj) acc[i][jj] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += HBK) {
+    for (int e = threadIdx.x; e < BM * HBK; e += 256) {
+      const int mm = e / HBK;
+      const int kk = e % HBK;
+      const int m = m0 + mm;
+      const int kidx = k0 + kk;
+      int8_t v = 0;
+      if (m < M && kidx < K) {
+        const int ic = kidx % p.IC;
+        const int t = kidx / p.IC;
+        const int kj = t % p.KW;
+        const int ki = t / p.KW;
+        const int ox = m % p.OW;
+        const int t2 = m / p.OW;
+        const int oy = t2 % p.OH;
+        const int nn = t2 / p.OH;
+        const int iy = oy * p.SH - p.PH + ki;
+        const int ix = ox * p.SW - p.PW + kj;
+        if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
+          v = p.x[(long long)nn * p.x_sn + (long long)iy * p.x_sh
+                  + (long long)ix * p.x_sw + ic];
+      }
+      As[mm][kk] = v;
+    }
+    for (int e = threadIdx.x; e < HBK * BM; e += 256) {
+      const int kk = e / BM;
+      const int nn = e % BM;
+      const int kidx = k0 + kk;
+      const int col = n0 + nn;
+      Bs[nn][kk] = (kidx < K && col < p.OC)
+                       ? p.w[(long long)kidx * p.OC + col] : (int8_t)0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < HBK; kk += 4) {
+      int a[TM], b[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const int*>(&As[ty * TM + i][kk]);
+#pragma unroll
+      for (int jj = 0; jj < TM; ++jj)
+        b[jj] = *reinterpret_cast<const int*>(&Bs[tx * TM + jj][kk]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int jj = 0; jj < TM; ++jj)
+          acc[i][jj] = __dp4a(a[i], b[jj], acc[i][jj]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty * TM + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int jj = 0; jj < TM; ++jj) {
+      const int col = n0 + tx * TM + jj;
+      if (col >= p.OC) continue;
+      int v = round_shift(acc[i][jj] + p.b[col], p.shift[col]);
+      if (p.relu[col]) v = max(v, 0);
+      p.out[(long long)m * p.OC + col] = (int8_t)clamp8(v);
+    }
+  }
+}
+
+// ------------------------------------------------------------- C interface
+#define BAD_DESCRIPTOR (-1)
+
+extern "C" int repro_fused_chain(const int32_t* desc, int n_desc,
+                                 const int64_t* ptrs, int n_blocks, int smem,
+                                 void* stream) {
+  ChainParams p;
+  memset(&p, 0, sizeof(p));
+  if (n_desc < HDR) return BAD_DESCRIPTOR;
+  memcpy(&p.h, desc, HDR * sizeof(int32_t));
+  const int m = p.h.n_stages;
+  if (m < 1 || m > MAX_STAGES || n_desc != HDR + STG * m)
+    return BAD_DESCRIPTOR;
+  memcpy(p.st, desc + HDR, (size_t)STG * m * sizeof(int32_t));
+  p.x = reinterpret_cast<const int8_t*>(ptrs[0]);
+  p.out = reinterpret_cast<int8_t*>(ptrs[1]);
+  for (int i = 0; i < MAX_STAGES; ++i) {
+    p.w[i] = reinterpret_cast<const int8_t*>(ptrs[2 + 3 * i]);
+    p.b[i] = reinterpret_cast<const int32_t*>(ptrs[3 + 3 * i]);
+    p.side[i] = reinterpret_cast<const int8_t*>(ptrs[4 + 3 * i]);
+  }
+  if (n_blocks <= 0) return 0;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  chain_kernel<<<n_blocks, THREADS, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_fused_horizontal(const int32_t* dims, const int64_t* ptrs,
+                                      void* stream) {
+  HorizontalParams p;
+  memcpy(&p, dims, 16 * sizeof(int32_t));
+  p.x = reinterpret_cast<const int8_t*>(ptrs[0]);
+  p.w = reinterpret_cast<const int8_t*>(ptrs[1]);
+  p.b = reinterpret_cast<const int32_t*>(ptrs[2]);
+  p.shift = reinterpret_cast<const int32_t*>(ptrs[3]);
+  p.relu = reinterpret_cast<const int32_t*>(ptrs[4]);
+  p.out = reinterpret_cast<int8_t*>(ptrs[5]);
+  const int M = p.N * p.OH * p.OW;
+  if (M <= 0 || p.OC <= 0) return 0;
+  const int tiles64 = ((M + 63) / 64) * ((p.OC + 63) / 64);
+  if (tiles64 >= 2 * N_SM) {
+    dim3 grid((M + 63) / 64, (p.OC + 63) / 64);
+    horizontal_kernel<4><<<grid, 256, 0, (cudaStream_t)stream>>>(p);
+  } else {
+    dim3 grid((M + 31) / 32, (p.OC + 31) / 32);
+    horizontal_kernel<2><<<grid, 256, 0, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* repro_error_string(int rc) {
+  if (rc == BAD_DESCRIPTOR) return "bad chain descriptor";
+  return cudaGetErrorString((cudaError_t)rc);
+}

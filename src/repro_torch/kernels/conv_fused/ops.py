@@ -1,0 +1,585 @@
+"""Launchers, plain versions and launch counts of the fused conv kernels.
+
+Port of ``src/repro/kernels/conv_fused/{ops,conv_fused}.py``.  Two kernels,
+written in CUDA C++ for ``sm_90a`` in ``csrc/conv_fused.cu``:
+
+``fused_chain``      — one lowered op chain (``lower.FusedLaunch`` of kind
+                       "chain") in one launch; intermediates stay in shared
+                       memory.
+``fused_horizontal`` — sibling convs over OC-stacked weights with
+                       per-channel shift and ReLU.
+
+Each wrapper takes its plain PyTorch version (``fused_chain_plain``,
+``fused_horizontal_plain``) only for a tensor on the CPU; on a CUDA tensor it
+launches its kernel or raises.  ``LAUNCHES`` counts kernel launches and
+``PLAIN_CALLS`` counts the wrappers' CPU branch.
+
+``run_launch`` executes one ``FusedLaunch`` against an activation env; the
+executor builds each launch's device weights once (``prepare_launch``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core import int8_ops
+from repro_torch.kernels.conv_fused import build
+
+I8_MIN = -128
+
+LAUNCHES = {"fused_chain": 0, "fused_horizontal": 0}
+PLAIN_CALLS = {"fused_chain": 0, "fused_horizontal": 0}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+# ------------------------------------------------------------ static geometry
+def _stage_geom(st):
+    """(ekh, ekw, sh, sw, ph, pw) of one stage spec."""
+    if st[0] == "conv":
+        _, _, kh, kw, sh, sw, ph, pw, dh, dw = st[:10]
+        return (dh * (kh - 1) + 1, dw * (kw - 1) + 1, sh, sw, ph, pw)
+    if st[0] == "pool":
+        _, _, _, kph, kpw, sph, spw, pph, ppw = st[:9]
+        return (kph, kpw, sph, spw, pph, ppw)
+    return (1, 1, 1, 1, 0, 0)   # elt
+
+
+def _fill_of(st) -> int:
+    """Pad identity a stage wants on its *input*."""
+    return I8_MIN if (st[0] == "pool" and st[2] == "max") else 0
+
+
+def _true_hw(st) -> tuple[int, int]:
+    if st[0] == "conv":
+        return st[12], st[13]
+    if st[0] == "pool":
+        return st[9], st[10]
+    return st[5], st[6]
+
+
+def chain_geometry(chain, th: int, oh: int, ow: int, tw: int | None = None
+                   ) -> dict:
+    """Static tile geometry of a lowered chain (a copy of the reference's
+    ``conv_fused.chain_geometry``).
+
+    Every tensor of the chain lives in *padded coordinates*: walking back
+    from the final output (offset 0), a stage with stride ``s`` and pad ``p``
+    maps its output offset ``Q`` to the input offset ``Q*s + p``.  ``rows``/
+    ``cols`` are each stage's output window for one (th, tw) output tile,
+    ``fout``/``foutw`` the window's step between neighbouring tiles, ``q``
+    each stage output's offset.  ``in_*`` describe the input window."""
+    tw = ow if tw is None else tw
+    m = len(chain)
+    rows = [0] * m
+    cols = [0] * m
+    fout = [0] * m           # padded row-offset factor of stage i's output
+    foutw = [0] * m          # padded col-offset factor of stage i's output
+    q = [(0, 0)] * m         # padded-coordinate offset of stage i's output
+    r, c, f, fw, qq = th, tw, th, tw, (0, 0)
+    for i in range(m - 1, -1, -1):
+        rows[i], cols[i], fout[i], foutw[i], q[i] = r, c, f, fw, qq
+        ekh, ekw, sh, sw, ph, pw = _stage_geom(chain[i])
+        r = (r - 1) * sh + ekh
+        c = (c - 1) * sw + ekw
+        f = f * sh
+        fw = fw * sw
+        qq = (qq[0] * sh + ph, qq[1] * sw + pw)
+    n_h = -(-oh // th)
+    n_w = -(-ow // tw)
+    sides = []
+    for i, st in enumerate(chain):
+        if st[0] == "elt":
+            q_in = q[i]      # elt: input coords == output coords
+            sides.append({"q": q_in, "rows": rows[i], "cols": cols[i],
+                          "h_req": (n_h - 1) * fout[i] + rows[i],
+                          "w_req": (n_w - 1) * foutw[i] + cols[i],
+                          "f": fout[i], "fw": foutw[i]})
+    return {
+        "in_rows": r, "in_cols": c, "f_in": f, "fw_in": fw, "q_in": qq,
+        "h_req": (n_h - 1) * f + r, "w_req": (n_w - 1) * fw + c,
+        "rows": rows, "cols": cols, "fout": fout, "foutw": foutw, "q": q,
+        "fill0": _fill_of(chain[0]) if chain else 0,
+        "sides": sides, "th": th, "tw": tw, "n_h": n_h, "n_w": n_w,
+    }
+
+
+# ------------------------------------------------------------ plain versions
+def fused_chain_plain(x, weights, biases, sides, *, chain, oh, ow, oc):
+    """The chain over whole tensors with ``int8_ops`` semantics: each stage
+    spec becomes the reference op, the ceil extension of a pool comes from
+    the stage's true output extent."""
+    t = x
+    wi = si = 0
+    for st in chain:
+        if st[0] == "conv":
+            _, _, kh, kw, sh, sw, ph, pw, dh, dw, shift, relu = st[:12]
+            t = int8_ops.conv2d(t, weights[wi], biases[wi], stride=(sh, sw),
+                                pad=(ph, pw), dilation=(dh, dw), shift=shift,
+                                relu=relu)
+            wi += 1
+        elif st[0] == "pool":
+            _, _, pkind, kh, kw, sh, sw, ph, pw, p_oh, p_ow, cnt = st[:12]
+            h, w = t.shape[1:3]
+            pads = (ph, max(ph, (p_oh - 1) * sh + kh - h - ph),
+                    pw, max(pw, (p_ow - 1) * sw + kw - w - pw))
+            if pkind == "max":
+                t = int8_ops.pool_windows(t, (kh, kw), (sh, sw), pads, I8_MIN,
+                                          torch.maximum)
+            else:
+                s = int8_ops.pool_windows(t.to(torch.int32), (kh, kw),
+                                          (sh, sw), pads, 0, torch.add)
+                t = int8_ops.sat8(int8_ops.rounded_div(s, cnt))
+        else:
+            _, _, s_main, s_side, relu_out = st[:5]
+            z = (int8_ops.round_shift(t, s_main)
+                 + int8_ops.round_shift(sides[si], s_side))
+            if relu_out:
+                z = z.clamp(min=0)
+            t = int8_ops.sat8(z)
+            si += 1
+    return t
+
+
+def fused_horizontal_plain(x, w, b, shift_vec, relu_vec, *, stride, pad):
+    """One conv over OC-stacked weights, then per-channel shift and ReLU."""
+    acc = int8_ops.conv_acc(x, w, stride=tuple(stride), pad=tuple(pad))
+    y = int8_ops.round_shift(acc + b.to(torch.int32), shift_vec)
+    y = torch.where(relu_vec != 0, y.clamp(min=0), y)
+    return int8_ops.sat8(y)
+
+
+# ------------------------------------------------------------ chain kernel
+# Shared memory a block may use (H100: 227 KB) and the SM count; the tile
+# chooser reads these, the kernel is told the buffer sizes it was given.
+SMEM_MAX = 232448
+N_SM = 132
+THREADS = 256
+MAX_STAGES = 8
+HDR, STG = 32, 32           # int32 fields of the header / of each stage
+_TYPE = {"conv": 0, "pool": 1, "elt": 2}
+_PKIND = {"max": 0, "avg": 1, "gap": 1}   # gap is an avg over the window
+
+
+def _align(n: int, a: int = 16) -> int:
+    return -(-n // a) * a
+
+
+def _chain_channels(chain, c_in: int, oc_of):
+    """(channels of each stage's output, index of the last conv)."""
+    conv_idx = [i for i, st in enumerate(chain) if st[0] == "conv"]
+    last_conv = conv_idx[-1] if conv_idx else -1
+    ch, c = [], c_in
+    for i, st in enumerate(chain):
+        if st[0] == "conv":
+            c = oc_of(i)
+        ch.append(c)
+    return ch, last_conv
+
+
+def _vec(cout: int, w_oc: int, toc: int) -> bool:
+    """Whether a conv stage takes the kernel's four-output-channel path
+    (word-aligned output channels, weight rows and OC tile)."""
+    return cout % 4 == 0 and w_oc % 4 == 0 and toc % 4 == 0
+
+
+def _lanes(items: int, cin: int) -> int:
+    """Lanes sharing one (pixel, 4-channel) item of the four-channel path:
+    the largest power of two up to 32 that keeps all items in one round of
+    ``THREADS`` and gives every lane an input-channel step (4 channels a
+    step when ``cin`` is a multiple of 4, else 1)."""
+    steps = cin // 4 if cin % 4 == 0 else cin
+    lanes = 1
+    while lanes < 32 and items * lanes * 2 <= THREADS and lanes * 2 <= steps:
+        lanes *= 2
+    return lanes
+
+
+def _plan_cost(chain, geom, ch, last_conv, c_in, toc, n, oc):
+    """(smem bytes, estimated time, issued work) of one tiling.
+
+    A block's threads walk each stage's work items ``THREADS`` at a time
+    (an item: one output value, or a pixel's 4 channels on the conv path
+    that ``_vec`` admits, shared by ``_lanes`` lanes).  A thread's serial
+    work is the sum over stages of rounds times the steps per item; issued
+    work counts the warps that have items.  The estimate is the larger of
+    issued work over the card's lanes and one block's serial work times the
+    waves of blocks the SMs hold at once."""
+    m = len(chain)
+    cout = [toc if i >= last_conv else ch[i] for i in range(m)]
+    in_c = toc if last_conv < 0 else c_in
+    win = [geom["in_rows"] * geom["in_cols"] * in_c] + [
+        geom["rows"][i] * geom["cols"][i] * cout[i] for i in range(m - 1)]
+    # window k lives in buffer A when k is even, B when odd (k=0: input)
+    size_a = max(win[0::2])
+    size_b = max(win[1::2]) if len(win) > 1 else 0
+    smem = _align(size_a) + _align(size_b)
+    serial = math.ceil(win[0] / THREADS)
+    issued = win[0]
+    cin = in_c
+    for i, st in enumerate(chain):
+        items = geom["rows"][i] * geom["cols"][i] * cout[i]
+        if st[0] == "conv" and _vec(cout[i], ch[i], toc):
+            items //= 4
+            lanes = _lanes(items, cin)
+            steps = cin // 4 if cin % 4 == 0 else cin
+            per = st[2] * st[3] * math.ceil(steps / lanes)
+            items *= lanes
+        elif st[0] == "conv":
+            per = st[2] * st[3] * cin
+        elif st[0] == "pool":
+            per = st[3] * st[4]
+        else:
+            per = 2
+        serial += math.ceil(items / THREADS) * per
+        issued += math.ceil(items / 32) * 32 * per
+        cin = cout[i]
+    blocks = n * geom["n_h"] * geom["n_w"] * (oc // toc)
+    occ = max(1, min(2048 // THREADS, SMEM_MAX // (smem + 1024)))
+    issued *= blocks
+    est = max(issued / (N_SM * 128),
+              serial * 8 * math.ceil(blocks / (N_SM * occ)))
+    return smem, est, issued
+
+
+def _ladder(n: int) -> list[int]:
+    out = [t for t in (32, 16, 8, 4, 2, 1) if t < n]
+    return sorted(set(out + [min(n, 32)]), reverse=True)
+
+
+@functools.lru_cache(maxsize=None)
+def choose_chain_tile(chain, oh: int, ow: int, oc: int, c_in: int, n: int,
+                      oc_list: tuple) -> tuple[int, int, int]:
+    """(th, tw, toc) for the card: the tiling whose buffers fit in a block's
+    shared memory and whose estimated time (per-block work times waves of
+    blocks over the SMs) is least.  The output does not depend on the
+    choice: the padded-coordinate masking makes every tile exact."""
+    ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
+    tocs = [t for t in (oc, oc // 2, oc // 4, oc // 8, 64, 32, 16, 8)
+            if t >= 1 and oc % t == 0]
+    best = None
+    for th in _ladder(oh):
+        for tw in _ladder(ow):
+            geom = chain_geometry(chain, th, oh, ow, tw)
+            for toc in sorted(set(tocs), reverse=True):
+                smem, est, total = _plan_cost(chain, geom, ch, last_conv,
+                                              c_in, toc, n, oc)
+                if smem > SMEM_MAX:
+                    continue
+                key = (est, total, -th * tw)
+                if best is None or key < best[0]:
+                    best = (key, (th, tw, toc))
+    if best is None:
+        raise ValueError(f"chain {[st[1] for st in chain]} does not fit in "
+                         f"{SMEM_MAX} bytes of shared memory even at 1x1")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
+               tile: tuple) -> tuple[np.ndarray, int]:
+    """Packed int32 descriptor (header + one record per stage) of a chain at
+    one tiling, and its shared-memory bytes.  Per-call fields (batch, input
+    and side strides) are left 0 and filled by the wrapper."""
+    th, tw, toc = tile
+    m = len(chain)
+    if m > MAX_STAGES:
+        raise ValueError(f"chain of {m} stages; the kernel takes "
+                         f"{MAX_STAGES}")
+    geom = chain_geometry(chain, th, oh, ow, tw)
+    ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
+    smem, _, _ = _plan_cost(chain, geom, ch, last_conv, c_in, toc, 1, oc)
+    cout = [toc if i >= last_conv else ch[i] for i in range(m)]
+    in_c = toc if last_conv < 0 else c_in
+    win_a = geom["in_rows"] * geom["in_cols"] * in_c
+    win_a = max([win_a] + [geom["rows"][i] * geom["cols"][i] * cout[i]
+                           for i in range(1, m - 1, 2)])
+    d = np.zeros(HDR + STG * m, np.int32)
+    d[0] = m
+    d[4] = c_in
+    d[8:11] = (geom["in_rows"], geom["in_cols"], in_c)
+    d[11] = int(last_conv < 0)
+    d[12:17] = (geom["f_in"], geom["fw_in"], geom["q_in"][0],
+                geom["q_in"][1], geom["fill0"])
+    d[17:23] = (th, tw, toc, geom["n_h"], geom["n_w"], oc // toc)
+    d[23:26] = (oh, ow, oc)
+    d[26] = _align(win_a)
+    cin = in_c
+    for i, st in enumerate(chain):
+        s = d[HDR + STG * i:HDR + STG * (i + 1)]
+        s[0] = _TYPE[st[0]]
+        ekh, ekw, sh, sw, _, _ = _stage_geom(st)
+        if st[0] == "conv":
+            s[1:7] = (st[2], st[3], sh, sw, st[8], st[9])
+            s[7], s[8] = st[10], int(st[11])
+            s[16] = oc_list[i]
+            if _vec(cout[i], oc_list[i], toc):
+                s[31] = _lanes(geom["rows"][i] * geom["cols"][i]
+                               * cout[i] // 4, cin)
+        elif st[0] == "pool":
+            s[1:7] = (ekh, ekw, sh, sw, 1, 1)
+            s[9], s[10] = _PKIND[st[2]], st[11]
+        else:
+            s[1:7] = (1, 1, 1, 1, 1, 1)
+            s[7], s[11], s[8] = st[2], st[3], int(st[4])
+        s[12:16] = (geom["rows"][i], geom["cols"][i], cin, cout[i])
+        s[17] = int(i >= last_conv)
+        s[18:20] = geom["q"][i]
+        s[20:22] = _true_hw(st)
+        s[22:24] = (geom["fout"][i], geom["foutw"][i])
+        s[24] = _fill_of(chain[i + 1]) if i + 1 < m else 0
+        s[25] = 2 if i == m - 1 else (1 if i % 2 == 0 else 0)
+        cin = cout[i]
+    d.setflags(write=False)
+    return d, smem
+
+
+def _check(t: torch.Tensor, dtype, name: str, dev) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
+
+
+def _chain_shapes(x_shape, w_shapes, b_shapes, side_shapes, chain,
+                  oc) -> tuple:
+    """Each stage's weight OC (0 for pools and elts), after checking that
+    the weights, biases and sides have the shapes the chain reads."""
+    n, _, _, c_in = x_shape
+    conv_pos = [i for i, st in enumerate(chain) if st[0] == "conv"]
+    elt_pos = [i for i, st in enumerate(chain) if st[0] == "elt"]
+    if len(w_shapes) != len(conv_pos) or len(side_shapes) != len(elt_pos):
+        raise ValueError(f"fused_chain: {len(w_shapes)} weights and "
+                         f"{len(side_shapes)} sides for {len(conv_pos)} conv "
+                         f"and {len(elt_pos)} elt stages")
+    oc_list = [0] * len(chain)
+    for i, ws in zip(conv_pos, w_shapes):
+        oc_list[i] = ws[-1]
+    oc_list = tuple(oc_list)
+    ch, _ = _chain_channels(chain, c_in, lambda i: oc_list[i])
+    for i, ws, bs in zip(conv_pos, w_shapes, b_shapes):
+        cin = ch[i - 1] if i else c_in
+        if ws[:3] != (chain[i][2], chain[i][3], cin) or bs != (oc_list[i],):
+            raise ValueError(f"fused_chain: stage {i} takes a "
+                             f"{chain[i][2:4]}x{cin} weight panel, got {ws} "
+                             f"and bias {bs}")
+    for i, ss in zip(elt_pos, side_shapes):
+        if len(ss) != 4 or ss[0] != n or ss[3] != ch[i]:
+            raise ValueError(f"fused_chain: stage {i} takes a side of "
+                             f"{ch[i]} channels, got {ss}")
+    if oc != ch[-1]:
+        raise ValueError(f"fused_chain: oc {oc}, chain ends with {ch[-1]}")
+    return oc_list
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_call(chain, oh, ow, oc, tile, x_geom, w_shapes, b_shapes,
+                side_geoms) -> tuple[np.ndarray, int, int]:
+    """(descriptor, shared-memory bytes, blocks) of one call signature:
+    the operands' shapes checked, the tile chosen (or a forced one clamped),
+    and the call's batch and strides written into the descriptor."""
+    x_shape, x_strides = x_geom
+    n, _, _, c_in = x_shape
+    oc_list = _chain_shapes(x_shape, w_shapes, b_shapes,
+                            [g[0] for g in side_geoms], chain, oc)
+    if tile is None:
+        tile = choose_chain_tile(chain, oh, ow, oc, c_in, n, oc_list)
+    else:
+        th, tw, toc = (max(1, min(int(tile[0]), oh)),
+                       max(1, min(int(tile[1]), ow)), int(tile[2]))
+        if toc < 1 or oc % toc:
+            raise ValueError(f"fused_chain: toc {toc} does not divide {oc}")
+        tile = (th, tw, toc)
+    desc, smem = chain_plan(chain, oh, ow, oc, c_in, oc_list, tile)
+    if smem > SMEM_MAX:
+        raise ValueError(f"fused_chain: tile {tile} needs {smem} bytes of "
+                         f"shared memory")
+    desc = desc.copy()
+    desc[1:4] = x_shape[:3]
+    desc[5:8] = x_strides[:3]
+    elt_pos = [i for i, st in enumerate(chain) if st[0] == "elt"]
+    for i, (s_shape, s_strides) in zip(elt_pos, side_geoms):
+        rec = HDR + STG * i
+        desc[rec + 26:rec + 28] = s_shape[1:3]
+        desc[rec + 28:rec + 31] = s_strides[:3]
+    desc.setflags(write=False)
+    return desc, smem, n * int(desc[20]) * int(desc[21]) * int(desc[22])
+
+
+def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_chain: no kernel for device {dev}")
+    _check(x, torch.int8, "x", dev)
+    if x.dim() != 4 or x.stride(3) != 1:
+        raise ValueError("fused_chain: x must be NHWC with unit channel "
+                         "stride")
+    for w, b in zip(weights, biases):
+        _check(w, torch.int8, "weight", dev)
+        _check(b, torch.int32, "bias", dev)
+        if not (w.is_contiguous() and b.is_contiguous()
+                and w.data_ptr() % 4 == 0):
+            raise ValueError("fused_chain: weights and biases must be "
+                             "contiguous, weights 4-byte aligned")
+    for sd in sides:
+        _check(sd, torch.int8, "side", dev)
+        if sd.stride(-1) != 1:
+            raise ValueError("fused_chain: sides must have unit channel "
+                             "stride")
+    desc, smem, n_blocks = _chain_call(
+        chain, oh, ow, oc, None if tile is None else tuple(tile),
+        (tuple(x.shape), x.stride()), tuple(tuple(w.shape) for w in weights),
+        tuple(tuple(b.shape) for b in biases),
+        tuple((tuple(sd.shape), sd.stride()) for sd in sides))
+    out = torch.empty((x.shape[0], oh, ow, oc), dtype=torch.int8, device=dev)
+    ptrs = np.zeros(2 + 3 * MAX_STAGES, np.int64)
+    ptrs[0], ptrs[1] = x.data_ptr(), out.data_ptr()
+    conv_pos = [i for i, st in enumerate(chain) if st[0] == "conv"]
+    for i, w, b in zip(conv_pos, weights, biases):
+        ptrs[2 + 3 * i], ptrs[3 + 3 * i] = w.data_ptr(), b.data_ptr()
+    elt_pos = [i for i, st in enumerate(chain) if st[0] == "elt"]
+    for i, sd in zip(elt_pos, sides):
+        ptrs[4 + 3 * i] = sd.data_ptr()
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.repro_fused_chain(
+        desc.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(len(desc)),
+        ptrs.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(n_blocks),
+        ctypes.c_int(smem), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"fused_chain launch failed: {build.error(rc)}")
+    LAUNCHES["fused_chain"] += 1
+    return out
+
+
+def fused_chain(x, weights, biases, sides, *, chain, oh, ow, oc,
+                tile=None):
+    """Run a lowered chain.  x (N,H,W,C) int8 unpadded; one (KH,KW,IC,OC)
+    int8 weight and (OC,) int32 bias per conv stage; one int8 side per elt
+    stage.  ``tile`` (th, tw, toc) overrides the card's tile choice."""
+    if x.device.type == "cpu":
+        PLAIN_CALLS["fused_chain"] += 1
+        return fused_chain_plain(x, weights, biases, sides, chain=chain,
+                                 oh=oh, ow=ow, oc=oc)
+    return _launch_chain(x, weights, biases, sides, chain=chain, oh=oh,
+                         ow=ow, oc=oc, tile=tile)
+
+
+# ------------------------------------------------------- horizontal kernel
+def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_horizontal: no kernel for device {dev}")
+    _check(x, torch.int8, "x", dev)
+    _check(w, torch.int8, "w", dev)
+    for t, nm in ((b, "b"), (shift_vec, "shift_vec"), (relu_vec, "relu_vec")):
+        _check(t, torch.int32, nm, dev)
+        if not t.is_contiguous():
+            raise ValueError(f"fused_horizontal: {nm} must be contiguous")
+    if x.dim() != 4 or x.stride(3) != 1 or not w.is_contiguous():
+        raise ValueError("fused_horizontal: x must be NHWC with unit channel "
+                         "stride and w contiguous")
+    n, h, wd, ic = x.shape
+    kh, kw, wic, oc = w.shape
+    if wic != ic or any(t.shape != (oc,) for t in (b, shift_vec, relu_vec)):
+        raise ValueError(f"fused_horizontal: weights {tuple(w.shape)} with "
+                         f"x of {ic} channels, vectors of "
+                         f"{[tuple(t.shape) for t in (b, shift_vec, relu_vec)]}")
+    sh, sw = stride
+    ph, pw = pad
+    oh = (h + 2 * ph - kh) // sh + 1
+    ow = (wd + 2 * pw - kw) // sw + 1
+    out = torch.empty((n, oh, ow, oc), dtype=torch.int8, device=dev)
+    dims = np.array([n, h, wd, ic, *x.stride()[:3], kh, kw, sh, sw, ph, pw,
+                     oh, ow, oc], np.int32)
+    ptrs = np.array([x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                     shift_vec.data_ptr(), relu_vec.data_ptr(),
+                     out.data_ptr()], np.int64)
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.repro_fused_horizontal(
+        dims.ctypes.data_as(ctypes.c_void_p),
+        ptrs.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"fused_horizontal launch failed: "
+                           f"{build.error(rc)}")
+    LAUNCHES["fused_horizontal"] += 1
+    return out
+
+
+def fused_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad):
+    """Sibling convs over OC-stacked weights w (KH,KW,IC,ΣOC) int8 with bias
+    b and per-channel shift/ReLU vectors (ΣOC,) int32."""
+    if x.device.type == "cpu":
+        PLAIN_CALLS["fused_horizontal"] += 1
+        return fused_horizontal_plain(x, w, b, shift_vec, relu_vec,
+                                      stride=stride, pad=pad)
+    return _launch_horizontal(x, w, b, shift_vec, relu_vec, stride=stride,
+                              pad=pad)
+
+
+# ------------------------------------------------------------ executor hook
+def prepare_launch(launch, qm, device) -> dict:
+    """Device tensors one launch needs, built once: per-stage weights and
+    biases of a chain, or the OC-stacked weights, bias, shift and ReLU
+    vectors of a horizontal launch."""
+    dev = torch.device(device)
+    if launch.kind == "horizontal":
+        w = np.concatenate([qm.weights[m] for m, *_ in launch.members], -1)
+        b = np.concatenate([qm.biases[m] for m, *_ in launch.members])
+        shift = np.concatenate([np.full(oc, s, np.int32)
+                                for _, oc, s, _ in launch.members])
+        relu = np.concatenate([np.full(oc, int(r), np.int32)
+                               for _, oc, _, r in launch.members])
+        return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+                for k, v in (("w", w.astype(np.int8)),
+                             ("b", b.astype(np.int32)),
+                             ("shift", shift), ("relu", relu))}
+    weights, biases = [], []
+    for st in launch.stages:
+        if st[0] == "conv":
+            w = np.asarray(qm.weights[st[1]], np.int8)
+            if launch.fc_reshape:
+                w = w.reshape(1, 1, *w.shape)
+            weights.append(torch.as_tensor(np.ascontiguousarray(w),
+                                           device=dev))
+            biases.append(torch.as_tensor(
+                np.asarray(qm.biases[st[1]], np.int32), device=dev))
+    return {"weights": tuple(weights), "biases": tuple(biases)}
+
+
+def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
+               ) -> dict:
+    """Execute one FusedLaunch; returns {tensor name: int8 tensor}.  The
+    launch's TPU tile record (``launch.tile``) is not used: the card picks
+    its own tile."""
+    x = env[launch.in_name]
+    if prepared is None:
+        prepared = prepare_launch(launch, qm, x.device)
+    if launch.kind == "horizontal":
+        y = fused_horizontal(x, prepared["w"], prepared["b"],
+                             prepared["shift"], prepared["relu"],
+                             stride=tuple(launch.stride),
+                             pad=tuple(launch.pad))
+        outs, off = {}, 0
+        for m, oc_m, _, _ in launch.members:
+            outs[m] = y[..., off:off + oc_m]
+            off += oc_m
+        return outs
+    if launch.fc_reshape:
+        x = x.reshape(x.shape[0], 1, 1, -1)
+    weights = prepared["weights"]
+    sides = tuple(env[s] for s in launch.sides)
+    oh, ow = launch.out_hw
+    oc = int(weights[-1].shape[-1]) if weights else int(x.shape[-1])
+    y = fused_chain(x, weights, prepared["biases"], sides,
+                    chain=launch.stages, oh=oh, ow=ow, oc=oc)
+    return {launch.out_name: y}

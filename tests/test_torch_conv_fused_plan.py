@@ -1,0 +1,234 @@
+"""The card's side of repro_torch.kernels.conv_fused, checked on the CPU:
+tile plans fit a block's shared memory at 224, the packed descriptors walked
+by a numpy model of the CUDA chain kernel equal the plain version, and the
+wrappers take the plain versions only for CPU tensors."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import lower
+from repro_torch.kernels.conv_fused import ops
+from torch_common import HAND_CHAINS, hand_chain_args, port_model, strategy
+from torch_common import i8 as _i8
+
+
+# ------------------------------------------------- the card's tile plans
+def _chain_meta(g, launch):
+    c_in = g.shape(launch.in_name)[3]
+    if launch.fc_reshape:
+        _, h, w, c = g.shape(launch.in_name)
+        c_in = h * w * c
+    oc_list = tuple(g.shape(st[1])[3] if st[0] == "conv" else 0
+                    for st in launch.stages)
+    oc = [o for o in oc_list if o][-1] if any(oc_list) else c_in
+    return c_in, oc_list, oc
+
+
+@pytest.mark.parametrize("model", ["googlenet", "resnet50"])
+def test_card_tiles_fit_shared_memory_at_224(model):
+    from repro_torch.cnn import build
+    g = build(model)
+    prog = lower.lower_strategy(g, strategy("repro_torch", g), None)
+    for launch in prog.launches():
+        if launch.kind != "chain":
+            continue
+        c_in, oc_list, oc = _chain_meta(g, launch)
+        oh, ow = launch.out_hw
+        th, tw, toc = ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in,
+                                            1, oc_list)
+        assert 1 <= th <= oh and 1 <= tw <= ow and oc % toc == 0
+        desc, smem = ops.chain_plan(launch.stages, oh, ow, oc, c_in, oc_list,
+                                    (th, tw, toc))
+        assert 0 < smem <= ops.SMEM_MAX
+        assert len(desc) == ops.HDR + ops.STG * len(launch.stages)
+
+
+_HDR = ("n_stages N H W C x_sn x_sh x_sw in_rows in_cols in_c in_sliced f_in "
+        "fw_in q_in0 q_in1 fill0 th tw toc n_h n_w n_k OH OW OC buf_b").split()
+_STG = ("type kh kw sh sw dh dw shift relu pkind cnt s_side rows cols cin "
+        "cout w_oc sliced q0 q1 true_h true_w fout foutw fill_next "
+        "out_buf").split()
+
+
+def _rshift(v, s):
+    return (np.sign(v) * ((np.abs(v) + (1 << (s - 1))) >> s) if s > 0
+            else v << -s)
+
+
+def _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
+    """What ``chain_kernel`` in csrc/conv_fused.cu computes from the packed
+    descriptor: per block, the halo'd window with virtual padding, each
+    stage over its window, masking to the next stage's pad identity, and
+    the final tile written where it lies inside (OH, OW)."""
+    n_img, hh, ww, c_in = x.shape
+    conv_at = [i for i, st in enumerate(chain) if st[0] == "conv"]
+    oc_list = [0] * len(chain)
+    for i, t in zip(conv_at, w):
+        oc_list[i] = t.shape[-1]
+    desc, smem = ops.chain_plan(chain, oh, ow, oc, c_in, tuple(oc_list), tile)
+    assert smem <= ops.SMEM_MAX
+    h = dict(zip(_HDR, desc[:len(_HDR)].tolist()))
+    st = [dict(zip(_STG, desc[ops.HDR + ops.STG * i:][:len(_STG)].tolist()))
+          for i in range(len(chain))]
+    wmap = dict(zip(conv_at, zip(w, b)))
+    smap = dict(zip([i for i, s in enumerate(chain) if s[0] == "elt"], sides))
+    out = np.zeros((n_img, oh, ow, oc), np.int64)
+    for n in range(n_img):
+        for j in range(h["n_h"]):
+            for jw in range(h["n_w"]):
+                for k in range(h["n_k"]):
+                    rows = j * h["f_in"] + np.arange(h["in_rows"]) - h["q_in0"]
+                    cols = jw * h["fw_in"] + np.arange(h["in_cols"]) - h["q_in1"]
+                    ch0 = k * h["toc"] if h["in_sliced"] else 0
+                    inside = (((rows >= 0) & (rows < hh))[:, None]
+                              & ((cols >= 0) & (cols < ww))[None, :])
+                    src = x[n][np.clip(rows, 0, hh - 1)][:, np.clip(
+                        cols, 0, ww - 1)][..., ch0:ch0 + h["in_c"]]
+                    src = np.where(inside[..., None], src.astype(np.int64),
+                                   h["fill0"])
+                    for i, s in enumerate(st):
+                        c0 = k * h["toc"] if s["sliced"] else 0
+                        R, C, CO = s["rows"], s["cols"], s["cout"]
+                        assert src.shape[2] == s["cin"]
+
+                        def win(ki, kj, dh=1, dw=1):
+                            return src[ki * dh:ki * dh + (R - 1) * s["sh"] + 1:
+                                       s["sh"], kj * dw:kj * dw + (C - 1)
+                                       * s["sw"] + 1:s["sw"]]
+                        if s["type"] == 0:
+                            wt, bt = wmap[i]
+                            v = np.zeros((R, C, CO), np.int64) + bt[c0:c0 + CO]
+                            for ki in range(s["kh"]):
+                                for kj in range(s["kw"]):
+                                    v += win(ki, kj, s["dh"], s["dw"]) @ \
+                                        wt[ki, kj][:, c0:c0 + CO].astype(np.int64)
+                            v = _rshift(v, s["shift"])
+                        elif s["type"] == 1:
+                            ws = [win(ki, kj) for ki in range(s["kh"])
+                                  for kj in range(s["kw"])]
+                            if s["pkind"] == 0:
+                                v = np.max(ws, axis=0)
+                            else:
+                                t = np.sum(ws, axis=0)
+                                v = np.sign(t) * ((np.abs(t) + s["cnt"] // 2)
+                                                  // s["cnt"])
+                        else:
+                            side = smap[i][n].astype(np.int64)
+                            sr = j * s["fout"] + np.arange(R) - s["q0"]
+                            sc = jw * s["foutw"] + np.arange(C) - s["q1"]
+                            ok = (((sr >= 0) & (sr < side.shape[0]))[:, None]
+                                  & ((sc >= 0) & (sc < side.shape[1]))[None, :])
+                            sv = side[np.clip(sr, 0, side.shape[0] - 1)][
+                                :, np.clip(sc, 0, side.shape[1] - 1)][
+                                ..., c0:c0 + CO]
+                            v = (_rshift(src, s["shift"])
+                                 + _rshift(np.where(ok[..., None], sv, 0),
+                                           s["s_side"]))
+                        if s["relu"]:
+                            v = np.maximum(v, 0)
+                        v = np.clip(v, -128, 127)
+                        if s["out_buf"] == 2:
+                            r0, cc0 = j * h["th"], jw * h["tw"]
+                            r1, c1 = min(oh, r0 + R), min(ow, cc0 + C)
+                            out[n, r0:r1, cc0:c1, c0:c0 + CO] = \
+                                v[:r1 - r0, :c1 - cc0]
+                        else:
+                            pr = j * s["fout"] + np.arange(R)[:, None]
+                            pc = jw * s["foutw"] + np.arange(C)[None, :]
+                            valid = ((pr >= s["q0"]) & (pr < s["q0"] + s["true_h"])
+                                     & (pc >= s["q1"])
+                                     & (pc < s["q1"] + s["true_w"]))
+                            src = np.where(valid[..., None], v, s["fill_next"])
+    return out.astype(np.int8)
+
+
+@pytest.mark.parametrize("i", range(len(HAND_CHAINS)))
+@pytest.mark.parametrize("tile", [None, (3, 5, 4), (1, 1, 8), (2, 3, 16)])
+def test_descriptor_walk_matches_plain(i, tile):
+    chain, x, w, b, sides, oh, ow, oc = hand_chain_args(i, np.random.default_rng(i))
+    conv_at = [j for j, st in enumerate(chain) if st[0] == "conv"]
+    oc_list = [0] * len(chain)
+    for j, t in zip(conv_at, w):
+        oc_list[j] = t.shape[-1]
+    if tile is None:
+        tile = ops.choose_chain_tile(chain, oh, ow, oc, x.shape[3], 2,
+                                     tuple(oc_list))
+    else:
+        toc = tile[2] if oc % tile[2] == 0 else oc
+        tile = (min(tile[0], oh), min(tile[1], ow), toc)
+    got = _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile)
+    want = ops.fused_chain_plain(
+        torch.as_tensor(x), [torch.as_tensor(t) for t in w],
+        [torch.as_tensor(t) for t in b], [torch.as_tensor(t) for t in sides],
+        chain=chain, oh=oh, ow=ow, oc=oc)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_descriptor_walk_matches_plain_on_model_launches():
+    rng = np.random.default_rng(7)
+    for model, img in (("toy", 16), ("resnet50", 32)):
+        g, qm, _ = port_model(model, img)
+        prog = lower.lower_strategy(g, strategy("repro_torch", g), qm)
+        for launch in prog.launches():
+            if launch.kind != "chain":
+                continue
+            prep = ops.prepare_launch(launch, qm, "cpu")
+            x = _i8(rng, (1,) + tuple(g.shape(launch.in_name)[1:]))
+            if launch.fc_reshape:
+                x = x.reshape(1, 1, 1, -1)
+            sides = [_i8(rng, (1,) + tuple(g.shape(s)[1:]))
+                     for s in launch.sides]
+            w = [t.numpy() for t in prep["weights"]]
+            b = [t.numpy() for t in prep["biases"]]
+            c_in, oc_list, oc = _chain_meta(g, launch)
+            oh, ow = launch.out_hw
+            tile = ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in, 1,
+                                         oc_list)
+            got = _emulate_chain_kernel(x, w, b, sides, launch.stages, oh, ow,
+                                        oc, tile)
+            want = ops.fused_chain_plain(
+                torch.as_tensor(x), prep["weights"], prep["biases"],
+                [torch.as_tensor(s) for s in sides], chain=launch.stages,
+                oh=oh, ow=ow, oc=oc)
+            np.testing.assert_array_equal(got, want.numpy(),
+                                          err_msg=str(launch.nodes))
+
+
+# ------------------------------------------------------------ the wrappers
+def test_wrappers_take_plain_versions_only_on_cpu():
+    rng = np.random.default_rng(0)
+    chain, x, w, b, sides, oh, ow, oc = hand_chain_args(0, rng)
+    args = (torch.as_tensor(x), [torch.as_tensor(t) for t in w],
+            [torch.as_tensor(t) for t in b], [torch.as_tensor(t) for t in sides])
+    ops.reset_counts()
+    ops.fused_chain(*args, chain=chain, oh=oh, ow=ow, oc=oc)
+    xh = torch.as_tensor(_i8(rng, (1, 5, 5, 4)))
+    wh = torch.as_tensor(_i8(rng, (1, 1, 4, 6)))
+    vec = torch.zeros(6, dtype=torch.int32)
+    ops.fused_horizontal(xh, wh, vec, vec + 3, vec + 1, stride=(1, 1),
+                         pad=(0, 0))
+    assert ops.PLAIN_CALLS == {"fused_chain": 1, "fused_horizontal": 1}
+    assert ops.LAUNCHES == {"fused_chain": 0, "fused_horizontal": 0}
+    # the kernel launchers never fall back: a CPU tensor is refused
+    with pytest.raises(ValueError, match="no kernel"):
+        ops._launch_chain(*args, chain=chain, oh=oh, ow=ow, oc=oc, tile=None)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops._launch_horizontal(xh, wh, vec, vec, vec, stride=(1, 1),
+                               pad=(0, 0))
+    ops.reset_counts()
+
+
+def test_chain_shape_checks_refuse_mismatched_operands():
+    chain, x, w, b, sides, oh, ow, oc = hand_chain_args(
+        0, np.random.default_rng(1))
+    shapes = (x.shape, (w[0].shape,), (b[0].shape,), [sides[0].shape])
+    assert ops._chain_shapes(*shapes, chain, oc)[0] == 16
+    with pytest.raises(ValueError, match="weight panel"):
+        ops._chain_shapes(x.shape, ((3, 3, 4, 16),), shapes[2], shapes[3],
+                          chain, oc)
+    with pytest.raises(ValueError, match="side of 16 channels"):
+        ops._chain_shapes(*shapes[:3], [(2, 7, 6, 8)], chain, oc)
+    with pytest.raises(ValueError, match="1 weights and 0 sides"):
+        ops._chain_shapes(*shapes[:3], [], chain, oc)
+    with pytest.raises(ValueError, match="oc 8"):
+        ops._chain_shapes(*shapes, chain, 8)
