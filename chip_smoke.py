@@ -5,8 +5,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the build of the conv_fused kernels from ``src/repro_torch`` with
-   nvcc (``sm_90a``).
+   and the build of both kernel libraries (conv_fused, flash_attention)
+   from ``src/repro_torch`` with nvcc (``sm_90a``), one nvcc each, started
+   together.
 2. Kernels against their plain PyTorch versions on the card, int8 bit
    equality: ``fused_chain`` on every distinct chain launch of GoogLeNet-224
    and ResNet50-224 (strategies from ``pathsearch.search(g, ZU2)``, weights
@@ -21,6 +22,23 @@ Phases (any failure raises and the script exits non-zero):
    under ZU2, served by ``Session(device="cuda")``: ``validate.bit_exact``
    (fused against ref), launch counts per image, and a ``Server`` answering
    16 requests bit-equal to ``Session.run``.
+4. Flash attention on the card: fp32 (TF32 off) against its plain PyTorch
+   version at 2e-5, and bf16 against the kernel's arithmetic unfused in
+   fp32 (``attention_fp32``) at two bf16 unit roundoffs of each output
+   row's largest value, at Granite-8B's prefill shape (B=4, S=2048, 32
+   heads on 8 kv heads, d=128), SmolLM-360M's (15 on 5, d=64), a ``q_offset`` tail and a
+   non-causal call; timed with CUDA events beside the plain version, the
+   bound and ``scaled_dot_product_attention`` (a yardstick the port never
+   calls).
+5. The LM slice: Granite-8B at full width (36 layers, random bf16 weights
+   from seed 0) on the card: ``make_prefill_step`` with
+   ``attn_impl="flash"`` on a 4x2048 prompt (36 flash launches, no plain
+   call), its logits no farther from the fp32 prefill of the same weights
+   than 1.25 times the ``attn_impl="xla"`` prefill's distance, then the
+   ``serve`` loop (prefill-by-decode of a 4x128 prompt, 32 greedy steps);
+   and a 2-layer fp32 Granite at full width holding flash
+   prefill against plain prefill at 1e-4 and teacher-forced decode against
+   prefill at 1e-3.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -34,6 +52,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "smoke_out")   # per-launch times, profiler trace
@@ -46,6 +65,23 @@ SEED = 0
 IMG = 224
 MEM_BW = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
 INT8_PEAK = 1979e12       # H100 SXM dense int8 tensor-core OP/s (data sheet)
+BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:73"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
+# (b, sq, sk, h, kv, d, q_offset, causal) of the flash checks on the card
+GRANITE_PREFILL = (4, 2048, 2048, 32, 8, 128, 0, True)
+FLASH_CASES = {
+    "granite prefill": GRANITE_PREFILL,
+    "smollm prefill": (4, 2048, 2048, 15, 5, 64, 0, True),
+    "granite q_offset tail": (4, 128, 2048, 32, 8, 128, 1920, True),
+    "granite non-causal": (1, 512, 512, 32, 8, 128, 0, False),
+}
+FP32_TOL = 2e-5            # fp32 kernel vs attention_ref, max |diff|
+# Granite's bf16 prefill logits, flash and xla, each against the fp32
+# prefill of the same weights: flash rounds less (fp32 scores and weights)
+# than the plain path, so its max |diff| may be at most 1.25 times xla's
+LOGITS_FLASH_VS_XLA = 1.25
 
 
 def log(*a) -> None:
@@ -304,10 +340,9 @@ def timing_phase(m, dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 3
-def profile_runs(sess, imgs) -> dict:
-    """Device busy share and kernel time by name over ``Session.run`` of
-    each image, from a ``torch.profiler`` trace (saved in the output
-    directory):
+def profile_device(fn, n: int, trace_name: str) -> dict:
+    """Device busy share and kernel time by name over ``n`` calls of
+    ``fn``, from a ``torch.profiler`` trace (saved in the output directory):
     busy = union of kernel and copy intervals over the span from the first
     device event to the last."""
     from torch.profiler import ProfilerActivity, profile
@@ -315,10 +350,10 @@ def profile_runs(sess, imgs) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for x in imgs:
-            sess.run(x)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    path = os.path.join(OUT, "googlenet_run_trace.json")
+    path = os.path.join(OUT, trace_name)
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)
@@ -334,12 +369,20 @@ def profile_runs(sess, imgs) -> dict:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
         key = name.split("(")[0][:60]
-        by_name[key] = by_name.get(key, 0.0) + (t1 - t0) / 1e3 / len(imgs)
+        by_name[key] = by_name.get(key, 0.0) + (t1 - t0) / 1e3 / n
     span = dev[-1][1] - dev[0][0]
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return {"device_busy_share": busy / span,
-            "device_span_ms_per_image": span / 1e3 / len(imgs),
-            "device_ms_per_image_by_kernel": top}
+            "device_span_ms_per_call": span / 1e3 / n,
+            "device_events_per_call": len(dev) / n,
+            "device_ms_per_call_by_kernel": top}
+
+
+def profile_runs(sess, imgs) -> dict:
+    """``profile_device`` over ``Session.run`` of each image."""
+    it = iter(imgs)
+    return profile_device(lambda: sess.run(next(it)), len(imgs),
+                          "googlenet_run_trace.json")
 
 
 def slice_phase(m, dev, card: str) -> dict:
@@ -409,6 +452,227 @@ def slice_phase(m, dev, card: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 4
+def flash_inputs(case, dtype, dev, seed):
+    b, sq, sk, h, kv, d, off, causal = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    return (q, k, v), dict(q_offset=off, causal=causal)
+
+
+def flash_work(case, elem_bytes: int) -> tuple[int, int]:
+    """(bytes, FLOPs) one flash call needs: q, k, v read once, o written
+    once; 4 d FLOPs (QK^T and PV) for each (query, key) pair the mask
+    keeps, which for causal rows is q_offset + i + 1 keys (up to Sk)."""
+    b, sq, sk, h, kv, d, off, causal = case
+    nbytes = elem_bytes * (2 * b * sq * h * d + 2 * b * sk * kv * d)
+    pairs = (sum(min(sk, off + i + 1) for i in range(sq)) if causal
+             else sq * sk)
+    return nbytes, 4 * d * b * h * pairs
+
+
+def flash_kernel_phase(dev) -> dict:
+    from repro_torch.kernels.flash_attention import ops as flash
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for i, (name, case) in enumerate(FLASH_CASES.items()):
+        (q, k, v), kw = flash_inputs(case, torch.float32, dev, SEED + i)
+        got = flash.flash_attention(q, k, v, **kw)
+        err = float((got - flash.attention_ref(q, k, v, **kw)).abs().max())
+        if not err <= FP32_TOL:
+            raise AssertionError(f"flash_attention {name} fp32: max |err| "
+                                 f"{err} > {FP32_TOL}")
+        errs[f"{name} float32"] = err
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        got = flash.flash_attention(q, k, v, **kw)
+        want = flash.attention_fp32(q, k, v, **kw)
+        rel = flash.row_rel_err(got, want)
+        tol = flash.OUT_REL_TOL[torch.bfloat16]
+        if not (rel <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {name} bf16: max row-"
+                                 f"relative |err| {rel} > {tol}")
+        errs[f"{name} bfloat16"] = float((got.float() - want).abs().max())
+        errs[f"{name} bfloat16 row-relative"] = rel
+        del q, k, v, got, want
+    log("flash_attention == plain on the card (fp32 max |err| vs "
+        "attention_ref; bf16 max |err| and row-relative err vs "
+        "attention_fp32): " + json.dumps(errs))
+    return errs
+
+
+def flash_timing_phase(dev) -> dict:
+    """One Granite-8B prefill call (bf16, the tensor-core kernel) of the
+    kernel, its plain version and SDPA, with the bound from this call's
+    shapes; and the CUDA-core kernel on the same call in fp32."""
+    from repro_torch.kernels.flash_attention import ops as flash
+
+    (q, k, v), kw = flash_inputs(GRANITE_PREFILL, torch.float32, dev, SEED)
+    fp32_ms = device_ms(lambda: flash.flash_attention(q, k, v, **kw), reps=3)
+    (q, k, v), kw = flash_inputs(GRANITE_PREFILL, torch.bfloat16, dev, SEED)
+    ms = device_ms(lambda: flash.flash_attention(q, k, v, **kw), reps=10)
+    plain_ms = device_ms(lambda: flash.attention_ref(q, k, v, **kw), reps=10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+    nbytes, flops = flash_work(GRANITE_PREFILL, 2)
+    t_bytes, t_ops = 1e3 * nbytes / MEM_BW, 1e3 * flops / BF16_PEAK
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_bytes, t_ops), "bound_bytes_ms": t_bytes,
+           "bound_ops_ms": t_ops, "flops": flops, "bytes": nbytes,
+           "tflops": flops / ms / 1e9, "fp32_cuda_core_ms": fp32_ms}
+    log("flash_attention at Granite-8B prefill (4x2048, 32/8 heads, d=128, "
+        "bf16): " + json.dumps(rec))
+    return rec
+
+
+# ----------------------------------------------------------------- phase 5
+def reset_all_counts() -> None:
+    from repro_torch.kernels.conv_fused import ops as conv
+    from repro_torch.kernels.flash_attention import ops as flash
+
+    conv.reset_counts()
+    flash.reset_counts()
+
+
+def all_counts() -> tuple[dict, dict]:
+    from repro_torch.kernels.conv_fused import ops as conv
+    from repro_torch.kernels.flash_attention import ops as flash
+
+    return ({**conv.LAUNCHES, **flash.LAUNCHES},
+            {**conv.PLAIN_CALLS, **flash.PLAIN_CALLS})
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@torch.inference_mode()
+def lm_slice_phase(dev, card: str) -> dict:
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    base = configs.get("granite-8b")
+    cfg = dataclasses.replace(base, attn_impl="flash")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for d in (params, params["layers"])
+                   for t in d.values() if torch.is_tensor(t))
+    log(f"Granite-8B at full width on the card: {n_params} parameters "
+        f"(bf16) drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    B, S = GRANITE_PREFILL[0], GRANITE_PREFILL[1]
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    prefill = serve.make_prefill_step(cfg)
+    prefill(params, {"tokens": tokens[:, :128]})            # warm-up
+
+    reset_all_counts()                        # ---- main path starts here
+    logits, prefill_s = timed(lambda: prefill(params, {"tokens": tokens}))
+    launches, plain = all_counts()            # ---- main path ends here
+    if launches.get("flash_attention") != cfg.n_layers or any(
+            plain.values()):
+        raise AssertionError(f"flash prefill: launches {launches}, plain "
+                             f"calls {plain}")
+    if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    xla_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    want, xla_s = timed(lambda: serve.make_prefill_step(xla_cfg)(
+        params, {"tokens": tokens}))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref_cfg = dataclasses.replace(xla_cfg, dtype="float32")
+    ref = serve.make_prefill_step(ref_cfg)(
+        {k: ({kk: t.float() for kk, t in v.items()} if isinstance(v, dict)
+             else v.float()) for k, v in params.items()}, {"tokens": tokens})
+    diff = float((logits.float() - want.float()).abs().max())
+    err_flash = float((logits.float() - ref).abs().max())
+    err_xla = float((want.float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    del ref
+    if not err_flash <= LOGITS_FLASH_VS_XLA * err_xla:
+        raise AssertionError(f"flash prefill logits vs fp32: max |diff| "
+                             f"{err_flash} > {LOGITS_FLASH_VS_XLA} x {err_xla}"
+                             f" (xla's)")
+    log(f"Granite-8B prefill {B}x{S} (flash): {prefill_s * 1e3:.1f} ms, "
+        f"{B * S / prefill_s:.0f} tokens/s; xla prefill {xla_s * 1e3:.1f} "
+        f"ms; logits max |flash - xla| {diff}, against the fp32 prefill of "
+        f"the same weights: flash {err_flash}, xla {err_xla} (largest "
+        f"|logit| {scale}); argmax agreement flash/xla {agree}")
+    del logits, want
+    torch.cuda.empty_cache()
+
+    reset_all_counts()
+    prompt = rng.integers(0, cfg.vocab, (B, 128))
+    served = serve.serve_loop(cfg, params, prompt, 32, dev)
+    served = serve.serve_loop(cfg, params, prompt, 32, dev)   # warm
+    if any(all_counts()[1].values()) or served["tokens"].shape != (B, 32) \
+            or not ((0 <= served["tokens"]).all()
+                    and (served["tokens"] < cfg.vocab).all()):
+        raise AssertionError(f"serve loop: {served['tokens'].shape}")
+    pbd_tps = B * 127 / served["prefill_s"]
+    dec_tps = B * 32 / served["decode_s"]
+    log(f"Granite-8B serve loop (batch {B}): prefill-by-decode of 127 tokens "
+        f"{pbd_tps:.1f} tokens/s, 32 greedy steps {dec_tps:.1f} tokens/s "
+        f"({served['decode_s'] / 32 * 1e3:.2f} ms/step)")
+    prof_prefill = profile_device(lambda: prefill(params, {"tokens": tokens}),
+                                  1, "granite_prefill_trace.json")
+    cache = api.init_cache(cfg, B, 160, dev)
+    step = serve.make_serve_step(cfg)
+    tok = tokens[:, 0]
+    prof_decode = profile_device(lambda: step(params, cache, tok, 0), 4,
+                                 "granite_decode_trace.json")
+    del cache
+    log("Granite-8B profiled: prefill " + json.dumps(prof_prefill)
+        + "; decode step " + json.dumps(prof_decode))
+    del params
+    torch.cuda.empty_cache()
+
+    # fp32 at full width, 2 layers: the path's arithmetic, tightly
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p32 = api.init_params(cfg32, torch.Generator(device=dev).manual_seed(
+        SEED + 1), dev)
+    toks = tokens[:, :512]
+    got = serve.make_prefill_step(cfg32)(p32, {"tokens": toks})
+    want = serve.make_prefill_step(dataclasses.replace(
+        cfg32, attn_impl="xla"))(p32, {"tokens": toks})
+    err32 = float((got - want).abs().max())
+    if not err32 <= 1e-4:
+        raise AssertionError(f"fp32 flash vs plain prefill: {err32}")
+    short = toks[:, :128]
+    full = serve.make_prefill_step(cfg32)(p32, {"tokens": short})
+    cache = api.init_cache(cfg32, B, 128, dev)
+    dec = []
+    for t in range(128):
+        lg, cache = api.decode_step(cfg32, p32, cache, short[:, t], t)
+        dec.append(lg)
+    err_dec = float((torch.stack(dec, 1) - full).abs().max())
+    if not err_dec <= 1e-3:
+        raise AssertionError(f"fp32 decode vs prefill: {err_dec}")
+    log(f"Granite-8B full width, 2 layers, fp32: flash vs plain prefill "
+        f"({B}x512) max |diff| {err32}; teacher-forced decode vs prefill "
+        f"({B}x128) max |diff| {err_dec}")
+    return {"card": card, "prefill_ms": prefill_s * 1e3,
+            "prefill_tokens_per_s": B * S / prefill_s,
+            "xla_prefill_ms": xla_s * 1e3, "logits_max_abs_diff": diff,
+            "logits_err_vs_fp32": {"flash": err_flash, "xla": err_xla},
+            "logits_max_abs": scale, "argmax_agreement": agree,
+            "prefill_by_decode_tokens_per_s": pbd_tps,
+            "decode_tokens_per_s": dec_tps, "launches": launches,
+            "prefill_profile": prof_prefill, "decode_profile": prof_decode,
+            "fp32_prefill_err": err32, "fp32_decode_err": err_dec}
+
+
 def main() -> int:
     global OUT
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -418,7 +682,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels.conv_fused import build
+    from repro_torch.kernels import build
+    from repro_torch.kernels.conv_fused import ops as conv
+    from repro_torch.kernels.flash_attention import ops as flash
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -426,13 +692,18 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}"
         f", {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    path, out = build.compile_library(extra_flags=["-Xptxas", "-v"])
-    log(f"built {os.path.relpath(path, ROOT)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in out.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("  ptxas:", line.strip())
-    build.library()
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:   # one nvcc each
+        built = dict(zip(build.SOURCES, pool.map(
+            lambda name: build.compile_library(name, ["-Xptxas", "-v"]),
+            build.SOURCES)))
+    for name, (path, out) in built.items():
+        log(f"built {os.path.relpath(path, ROOT)}")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log("  ptxas:", line.strip())
+    log(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
+    conv.library()
+    flash.library()
 
     t0 = time.perf_counter()
     models = {name: prepare_model(name, dev)
@@ -442,6 +713,12 @@ def main() -> int:
     checked = kernel_phase(models, dev)
     timing = timing_phase(models["googlenet"], dev)
     served = slice_phase(models["googlenet"], dev, card)
+    del models
+    torch.cuda.empty_cache()
+    flash_errs = flash_kernel_phase(dev)
+    flash_t = flash_timing_phase(dev)
+    lm = lm_slice_phase(dev, card)
+    log(f"Granite-8B serving on {card}: " + json.dumps(lm))
 
     kernels = []
     for name, replaces in (
@@ -459,6 +736,17 @@ def main() -> int:
             "bound_by": ("bytes" if t["bound_bytes_ms"] >= t["bound_ops_ms"]
                          else "operations"),
             "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES,
+        "launches": lm["launches"]["flash_attention"],
+        "max_abs_err": flash_errs["granite prefill bfloat16"],
+        "ms": flash_t["ms"], "plain_ms": flash_t["plain_ms"],
+        "bound_ms": flash_t["bound_ms"],
+        "bound_by": ("bytes" if flash_t["bound_bytes_ms"]
+                     >= flash_t["bound_ops_ms"] else "operations"),
+        "library_ms": flash_t["library_ms"]})
+    checked["flash_max_abs_err"] = flash_errs
     print(json.dumps({"kernels": kernels, "checked": checked,
                       "card": card}), flush=True)
     print(smi(), flush=True)

@@ -1,12 +1,13 @@
 """Weights carried across from the reference package.
 
 The port never imports ``repro``; these functions read the reference's
-objects by attribute, so a test can hand the same quantized model or float
-parameters to both packages.
+objects by attribute or as numpy arrays, so a test can hand the same
+quantized model, float parameters or LM weights to both packages.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.quantize import QuantizedModel
 
@@ -25,3 +26,27 @@ def params_from_reference(params: dict) -> dict:
     """Float parameters ({node: {"w", "b"}}) as float32 numpy copies."""
     return {node: {k: np.asarray(v, np.float32).copy() for k, v in p.items()}
             for node, p in params.items()}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (or anything ``np.asarray`` takes) as a tensor.  A
+    bfloat16 array (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses) travels as its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def lm_params_from_reference(params: dict, device="cpu") -> dict:
+    """The reference LM's parameter pytree (nested dicts of arrays) as the
+    port's nested dicts of tensors, dtypes kept."""
+    return {k: lm_params_from_reference(v, device) if isinstance(v, dict)
+            else _tensor(v, device) for k, v in params.items()}
+
+
+def lm_cache_from_reference(cache: dict, device="cpu") -> dict:
+    """The reference LM's KV cache ({"k", "v"} arrays) as tensors."""
+    return {k: _tensor(v, device) for k, v in cache.items()}

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import int8_ops
-from repro_torch.kernels.conv_fused import build
+from repro_torch.kernels import build
 
 I8_MIN = -128
 
@@ -39,6 +39,19 @@ def reset_counts() -> None:
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+
+
+def _bind(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.repro_fused_chain.argtypes = [vp, ci, vp, ci, ci, vp]
+    lib.repro_fused_chain.restype = ci
+    lib.repro_fused_horizontal.argtypes = [vp, vp, vp]
+    lib.repro_fused_horizontal.restype = ci
+
+
+def library():
+    """The conv_fused CUDA library, built at first use."""
+    return build.library("conv_fused", _bind)
 
 
 # ------------------------------------------------------------ static geometry
@@ -448,14 +461,15 @@ def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile):
     elt_pos = [i for i, st in enumerate(chain) if st[0] == "elt"]
     for i, sd in zip(elt_pos, sides):
         ptrs[4 + 3 * i] = sd.data_ptr()
-    lib = build.library()
+    lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.repro_fused_chain(
         desc.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(len(desc)),
         ptrs.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(n_blocks),
         ctypes.c_int(smem), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"fused_chain launch failed: {build.error(rc)}")
+        raise RuntimeError(f"fused_chain launch failed: "
+                           f"{build.error(lib, rc)}")
     LAUNCHES["fused_chain"] += 1
     return out
 
@@ -503,14 +517,14 @@ def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad):
     ptrs = np.array([x.data_ptr(), w.data_ptr(), b.data_ptr(),
                      shift_vec.data_ptr(), relu_vec.data_ptr(),
                      out.data_ptr()], np.int64)
-    lib = build.library()
+    lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.repro_fused_horizontal(
         dims.ctypes.data_as(ctypes.c_void_p),
         ptrs.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_horizontal launch failed: "
-                           f"{build.error(rc)}")
+                           f"{build.error(lib, rc)}")
     LAUNCHES["fused_horizontal"] += 1
     return out
 

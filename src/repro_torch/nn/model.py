@@ -1,0 +1,166 @@
+# Ported from src/repro/nn/model.py (jax.numpy -> torch).
+"""Universal causal transformer LM: dense / MoE / SWA / VLM backbone.
+
+Layer parameters are stacked on a leading L axis, as in the reference's
+pytree; the reference's ``lax.scan`` over layers is a Python loop over that
+axis.  Training pieces (``_remat``, ``loss_fn``) are not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn import attention as attn
+from repro_torch.nn import layers as nnl
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: torch.device):
+    """Normal(0, 0.02) weights drawn on ``device`` from ``generator`` (which
+    must live on that device), with the reference's keys and shapes; norm
+    gains are fp32 ones."""
+    dt = _dtype(cfg)
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv, f, L, V = (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.n_layers,
+                      cfg.vocab)
+
+    def norm(*shape):
+        return torch.randn(shape, generator=generator, dtype=dt,
+                           device=device).mul_(0.02)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=device)
+
+    layers = {
+        "ln1": ones(L, d),
+        "ln2": ones(L, d),
+        "wq": norm(L, d, h * hd),
+        "wk": norm(L, d, kv * hd),
+        "wv": norm(L, d, kv * hd),
+        "wo": norm(L, h * hd, d),
+    }
+    if cfg.moe:
+        e = cfg.moe.n_experts
+        layers["router"] = norm(L, d, e)
+        layers["w1"] = norm(L, e, d, f)
+        layers["w2"] = norm(L, e, f, d)
+        if cfg.act == "silu_gated":
+            layers["w3"] = norm(L, e, d, f)
+    else:
+        layers["w1"] = norm(L, d, f)
+        layers["w2"] = norm(L, f, d)
+        if cfg.act == "silu_gated":
+            layers["w3"] = norm(L, d, f)
+    params = {"embed": norm(V, d), "layers": layers, "ln_f": ones(d)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = norm(V, d)
+    return params
+
+
+# ------------------------------------------------------------------ positions
+def positions_for(cfg: ArchConfig, batch: int, seq: int, offset: int = 0,
+                  device=None):
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
+    pos = pos.expand(batch, seq)
+    if not cfg.mrope:
+        return pos
+    # M-RoPE stub grid: the first n_patches positions are image patches on a
+    # (g x g) grid at t=0; text follows temporally.
+    npat = min(cfg.n_patches, seq)
+    g = max(1, int(npat ** 0.5))
+    idx = torch.arange(seq, device=device)
+    is_img = idx < npat
+    t = torch.where(is_img, 0, idx - npat + 1)
+    hh = torch.where(is_img, idx // g, idx - npat + 1)
+    ww = torch.where(is_img, idx % g, idx - npat + 1)
+    p3 = torch.stack([t, hh, ww]).to(torch.int32)[:, None, :] + offset
+    return p3.expand(3, batch, seq)
+
+
+def _rope(cfg: ArchConfig, x, pos):
+    if cfg.mrope:
+        return nnl.apply_mrope(x, pos, cfg.rope_theta)
+    return nnl.apply_rope(x, pos, cfg.rope_theta)
+
+
+def _layer_params(params, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _ffn(cfg: ArchConfig, h, lp):
+    if cfg.moe:
+        return nnl.moe_mlp(h, lp, cfg.act, cfg.moe.top_k)
+    return nnl.mlp(h, lp, cfg.act), 0.0
+
+
+def _unembed(params, x):
+    w_out = params.get("unembed", params["embed"])
+    return x @ w_out.T.to(x.dtype)
+
+
+# -------------------------------------------------------------------- forward
+def _layer(cfg: ArchConfig, x, lp, pos, impl):
+    h = nnl.rms_norm(x, lp["ln1"])
+    q, k, v = attn.qkv(h, lp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    q = _rope(cfg, q, pos)
+    k = _rope(cfg, k, pos)
+    o = attn.sdpa(q, k, v, causal=True, window=cfg.window, impl=impl)
+    x = x + attn.attn_out(o, lp)
+    y, aux = _ffn(cfg, nnl.rms_norm(x, lp["ln2"]), lp)
+    return x + y, aux
+
+
+def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
+    """tokens (B, S_text); patch_embeds (B, n_patches, D) for VLM.
+
+    Returns (logits (B,S,V), aux_loss)."""
+    x = params["embed"][tokens].to(_dtype(cfg))
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    b, s, _ = x.shape
+    pos = positions_for(cfg, b, s, device=x.device)
+    aux = 0.0
+    for i in range(cfg.n_layers):
+        x, a = _layer(cfg, x, _layer_params(params, i), pos, cfg.attn_impl)
+        aux = aux + a
+    x = nnl.rms_norm(x, params["ln_f"])
+    return _unembed(params, x), aux
+
+
+# --------------------------------------------------------------------- decode
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
+    size = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (cfg.n_layers, batch, size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
+    """One token: tokens (B,), pos the absolute position (an int).
+
+    Returns (logits (B,V), cache).  The cache is updated in place (see
+    ``attention.cache_update``) and returned."""
+    pos = int(pos)
+    x = params["embed"][tokens][:, None, :].to(_dtype(cfg))
+    b = x.shape[0]
+    shape = (3, b, 1) if cfg.mrope else (b, 1)
+    p = torch.full(shape, pos, dtype=torch.int32, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        h = nnl.rms_norm(x, lp["ln1"])
+        q, k, v = attn.qkv(h, lp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        q = _rope(cfg, q, p)
+        k = _rope(cfg, k, p)
+        layer_cache = attn.cache_update({"k": cache["k"][i],
+                                         "v": cache["v"][i]}, k, v, pos,
+                                        window=cfg.window)
+        o = attn.decode_attend(q, layer_cache, pos, window=cfg.window)
+        x = x + attn.attn_out(o, lp)
+        y, _ = _ffn(cfg, nnl.rms_norm(x, lp["ln2"]), lp)
+        x = x + y
+    x = nnl.rms_norm(x, params["ln_f"])
+    return _unembed(params, x)[:, 0], cache

@@ -1,5 +1,6 @@
-"""The conv_fused CUDA kernels and the fused executor on the card, against
-the plain versions (int8 bit equality), with the port alone (no jax).
+"""The port's CUDA kernels and the fused executor on the card, against the
+plain versions (int8 bit equality for the conv kernels, the stated
+tolerances for flash attention), with the port alone (no jax).
 Marked ``cuda``: they skip where CUDA is absent; on a GPU machine run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -59,3 +60,37 @@ def test_fused_executor_matches_ref_on_card(dev, model, img):
     assert not any(ops.PLAIN_CALLS.values())
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,off,causal", [
+    (2, 100, 100, 6, 2, 64, 0, True),        # ragged tiles, GQA 3:1
+    (1, 256, 256, 15, 5, 64, 0, True),       # SmolLM-360M's grouping
+    (2, 128, 384, 32, 8, 128, 256, True),    # Granite's, q_offset tail
+    (1, 64, 200, 4, 4, 32, 0, False),        # full attention
+    (1, 48, 48, 2, 1, 16, 0, True),
+])
+def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, d, off, causal):
+    """fp32 (TF32 off) against the plain version at 2e-5.  bf16 and fp16
+    against the kernel's arithmetic in fp32 (``attention_fp32``: q scaled in
+    the input dtype, fp32 scores, weights and products) at two unit
+    roundoffs of the output dtype relative to each row's largest value: the
+    kernel may differ from it only by the rounding of its output and the
+    residue of its split P."""
+    from repro_torch.kernels.flash_attention import ops as flash
+
+    gen = torch.Generator(device=dev).manual_seed(sq + h)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+        flash.reset_counts()
+        got = flash.flash_attention(q, k, v, q_offset=off, causal=causal)
+        torch.cuda.synchronize()
+        assert flash.LAUNCHES["flash_attention"] == 1
+        assert not flash.PLAIN_CALLS["flash_attention"]
+        if dtype == torch.float32:
+            want = flash.attention_ref(q, k, v, q_offset=off, causal=causal)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        else:
+            want = flash.attention_fp32(q, k, v, q_offset=off, causal=causal)
+            assert flash.row_rel_err(got, want) <= flash.OUT_REL_TOL[dtype]

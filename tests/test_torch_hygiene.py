@@ -48,6 +48,31 @@ print("BAD", bad, prog.meta["kinds"])
     assert res.stdout.startswith("BAD [] {'chain'"), res.stdout
 
 
+def test_cpu_lm_path_never_loads_jax_or_reference():
+    code = """
+import dataclasses, sys
+import numpy as np
+import torch
+from repro_torch import configs
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.launch import serve
+from repro_torch.models import api
+cfg = dataclasses.replace(configs.get("granite-8b").smoke(), attn_impl="flash")
+params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)))
+logits = serve.make_prefill_step(cfg)(params, {"tokens": toks})
+res = serve.serve_loop(cfg, params, toks.numpy(), 4, device="cpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad, tuple(logits.shape), res["tokens"].shape,
+      ops.PLAIN_CALLS["flash_attention"])
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "BAD [] (2, 16, 512) (2, 4) 4", res.stdout
+
+
 def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
@@ -72,6 +97,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         executor.Int8Executor(g, qm, backend="fused")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         executor.run_float(g, {}, None)
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get("granite-8b").smoke()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "granite-8b", "--smoke"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
