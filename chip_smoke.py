@@ -5,9 +5,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the build of both kernel libraries (conv_fused, flash_attention)
-   from ``src/repro_torch`` with nvcc (``sm_90a``), one nvcc each, started
-   together.
+   and the build of the kernel libraries (conv_fused, flash_attention,
+   ssm_scan) from ``src/repro_torch`` with nvcc (``sm_90a``), one nvcc
+   each, started together.
 2. Kernels against their plain PyTorch versions on the card, int8 bit
    equality: ``fused_chain`` on every distinct chain launch of GoogLeNet-224
    and ResNet50-224 (strategies from ``pathsearch.search(g, ZU2)``, weights
@@ -39,6 +39,29 @@ Phases (any failure raises and the script exits non-zero):
    and a 2-layer fp32 Granite at full width holding flash
    prefill against plain prefill at 1e-4 and teacher-forced decode against
    prefill at 1e-3.
+6. The chunked linear scan on the card (TF32 off): fp32 against
+   ``chunked_linear_scan`` at 2e-4 of each output row's largest value, bf16
+   against ``scan_fp32`` (the plain version on inputs upcast to fp32) at two
+   bf16 unit roundoffs of it, at xLSTM-1.3B's prefill shape (B=4, S=2048, 4
+   heads, K=V=1024), Zamba2-1.2B's (32 heads, K=64, V=128, q and k
+   broadcast over the heads with stride 0), a ragged S=200 and K != V;
+   timed with CUDA events at both model shapes beside the plain version and
+   the bound (and, at Zamba2's, at both column slab widths).
+7. The recurrent LM slices at full width and depth (random bf16 weights
+   from seed 0): xLSTM-1.3B (48 layers, 42 scan launches per prefill) and
+   Zamba2-1.2B (38 layers, 38 launches).  For each: ``make_prefill_step``
+   on a 4x2048 prompt (no plain call), its logits no farther from the fp32
+   prefill of the same weights (plain scan, TF32 off) than 1.25 times the
+   bf16 prefill with the plain scan (swapped in by patching
+   ``ops.ssm_scan`` here), every launch of a prefill held on the model's
+   own inputs against ``scan_fp32`` at two bf16 unit roundoffs, the
+   ``serve`` loop (prefill-by-decode of a 4x128 prompt, 32 greedy steps), a
+   profile of one prefill; then the model at full width and a cut depth
+   (xLSTM 8 layers; Zamba2 1 layer and its shared block): in fp32 every
+   launch against the plain scan at 2e-4 row-relative, kernel prefill
+   against plain prefill at 1e-4 and teacher-forced decode against prefill
+   at 1e-3, and the bf16 prefill's distance to fp32 held as at full depth,
+   the plain scan's within a quarter of the largest |logit|.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -47,6 +70,7 @@ The second-to-last lines are the kernels' JSON record and the card's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -78,6 +102,39 @@ FLASH_CASES = {
     "granite non-causal": (1, 512, 512, 32, 8, 128, 0, False),
 }
 FP32_TOL = 2e-5            # fp32 kernel vs attention_ref, max |diff|
+SCAN_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:49"
+SCAN_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+# (b, s, h, k, v, q and k broadcast over the heads) of the scan checks
+XLSTM_SCAN = (4, 2048, 4, 1024, 1024, False)
+ZAMBA_SCAN = (4, 2048, 32, 64, 128, True)
+SCAN_CASES = {
+    "xlstm prefill": XLSTM_SCAN,
+    "zamba2 prefill": ZAMBA_SCAN,
+    "ragged S=200": (4, 200, 4, 64, 96, False),
+    "K != V": (2, 256, 2, 40, 24, False),
+}
+SCAN_FP32_TOL = 2e-4       # row-relative, the JAX package's Pallas tolerance
+# the recurrent LMs' bf16 prefill logits with the kernel, against the fp32
+# prefill, at most 1.25 times as far as with the plain bf16 scan
+LOGITS_KERNEL_VS_PLAIN = 1.25
+# The recurrent LMs' checks at full width and a cut depth (config fields):
+# fp32 kernel prefill vs plain prefill at FP32_PREFILL_TOL, teacher-forced
+# decode vs prefill at FP32_DECODE_TOL, and the bf16 prefill no farther
+# from the fp32 one than LOGITS_KERNEL_VS_PLAIN times the plain scan's bf16
+# prefill, itself within BF16_PLAIN_MAX of the largest |logit| (farther,
+# the check would pass any kernel).  Zamba2 under random weights turns
+# last-bit differences of its scan into about 1e-3 on the logits of 8
+# layers, in the JAX reference as in the port
+# (tools/jax_scan_rounding_spread.py), and its bf16 logits decorrelate from
+# fp32 within a few layers, so it is checked at one Mamba2 layer followed
+# by one application of its shared block.
+DEPTH_CHECKS = {
+    "xlstm-1.3b": {"n_layers": 8},                  # 7 mLSTM, 1 sLSTM block
+    "zamba2-1.2b": {"n_layers": 1, "shared_attn_every": 1},
+}
+FP32_PREFILL_TOL = 1e-4
+FP32_DECODE_TOL = 1e-3
+BF16_PLAIN_MAX = 0.25
 # Granite's bf16 prefill logits, flash and xla, each against the fp32
 # prefill of the same weights: flash rounds less (fp32 scores and weights)
 # than the plain path, so its max |diff| may be at most 1.25 times xla's
@@ -528,20 +585,25 @@ def flash_timing_phase(dev) -> dict:
 
 
 # ----------------------------------------------------------------- phase 5
-def reset_all_counts() -> None:
+def _kernel_ops():
     from repro_torch.kernels.conv_fused import ops as conv
     from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ssm_scan import ops as scan
 
-    conv.reset_counts()
-    flash.reset_counts()
+    return conv, flash, scan
+
+
+def reset_all_counts() -> None:
+    for mod in _kernel_ops():
+        mod.reset_counts()
 
 
 def all_counts() -> tuple[dict, dict]:
-    from repro_torch.kernels.conv_fused import ops as conv
-    from repro_torch.kernels.flash_attention import ops as flash
-
-    return ({**conv.LAUNCHES, **flash.LAUNCHES},
-            {**conv.PLAIN_CALLS, **flash.PLAIN_CALLS})
+    launches, plain = {}, {}
+    for mod in _kernel_ops():
+        launches.update(mod.LAUNCHES)
+        plain.update(mod.PLAIN_CALLS)
+    return launches, plain
 
 
 def timed(fn):
@@ -673,6 +735,339 @@ def lm_slice_phase(dev, card: str) -> dict:
             "fp32_prefill_err": err32, "fp32_decode_err": err_dec}
 
 
+# ----------------------------------------------------------------- phase 6
+def scan_inputs(case, dtype, dev, seed):
+    """q, k (stride 0 over the heads where the case broadcasts them, as
+    Zamba2's are), v and log_a = log_sigmoid(N(0, 1)) (mean about -0.8, the
+    decay of both models under random weights)."""
+    b, s, h, dk, dv, bcast = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hq = 1 if bcast else h
+    q, k = ((torch.randn((b, s, hq, dk), generator=gen, device=dev)
+             / dk ** 0.5).to(dtype).expand(b, s, h, dk) for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=gen, device=dev).to(dtype)
+    la = torch.nn.functional.logsigmoid(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    return q, k, v, la
+
+
+def scan_work(case, elem_bytes: int) -> tuple[int, int]:
+    """(bytes, FLOPs) one scan call needs: q, k, v and log_a read once (a
+    broadcast q or k once per (batch, step)), y written once; the least
+    work of the function, the step-by-step recurrence's 4 K V per step and
+    head (2 K V for k_t v_t^T into the state, 2 K V for S^T q_t).  A chunked
+    form adds its masked L x L products, L (L + 1) (K + V) per chunk and
+    head, which the function does not need."""
+    b, s, h, dk, dv, bcast = case
+    hq = 1 if bcast else h
+    nbytes = (elem_bytes * (2 * b * s * hq * dk + 2 * b * s * h * dv)
+              + 4 * b * s * h)
+    return nbytes, 4 * b * s * h * dk * dv
+
+
+def scan_kernel_phase(dev) -> dict:
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for i, (name, case) in enumerate(SCAN_CASES.items()):
+        q, k, v, la = scan_inputs(case, torch.float32, dev, SEED + i)
+        want = chunked_linear_scan(q, k, v, la, chunk=chunk_for(case[1]))[0]
+        got = scan.ssm_scan(q, k, v, la, chunk=chunk_for(case[1]))
+        rel = scan.row_rel_err(got, want)
+        if not (rel <= SCAN_FP32_TOL and torch.isfinite(got).all()):
+            raise AssertionError(f"ssm_scan {name} fp32: max row-relative "
+                                 f"|err| {rel} > {SCAN_FP32_TOL}")
+        errs[f"{name} float32 row-relative"] = rel
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        want = scan.scan_fp32(q, k, v, la)
+        tol = scan.OUT_REL_TOL[torch.bfloat16]
+        for vt in scan.SLABS:
+            if scan.library().repro_ssm_scan_smem(case[3], vt) > \
+                    scan.MAX_SMEM:
+                continue
+            got = scan.launch(q, k, v, la, vt)
+            rel = scan.row_rel_err(got, want)
+            if not (rel <= tol and torch.isfinite(got).all()):
+                raise AssertionError(f"ssm_scan {name} bf16 slab {vt}: max "
+                                     f"row-relative |err| {rel} > {tol}")
+            errs[f"{name} bfloat16 slab {vt}"] = float(
+                (got.float() - want).abs().max())
+            errs[f"{name} bfloat16 slab {vt} row-relative"] = rel
+        del q, k, v, la, got, want
+    log("ssm_scan == plain on the card (fp32 row-relative err vs "
+        "chunked_linear_scan; bf16 max |err| and row-relative err vs "
+        "scan_fp32, at each slab width that fits): " + json.dumps(errs))
+    return errs
+
+
+def scan_timing_phase(dev) -> dict:
+    """One call at each model's prefill shape (bf16) of the kernel (at the
+    slab width the wrapper chooses, and at Zamba2's at both), its plain
+    version and the bound from the call's shapes."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.nn.recurrent import chunked_linear_scan
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, case in (("xlstm-1.3b", XLSTM_SCAN),
+                       ("zamba2-1.2b", ZAMBA_SCAN)):
+        q, k, v, la = scan_inputs(case, torch.bfloat16, dev, SEED)
+        b, s, h, dk, dv, _ = case
+        ms = device_ms(lambda: scan.ssm_scan(q, k, v, la), reps=5)
+        plain_ms = device_ms(lambda: chunked_linear_scan(q, k, v, la)[0],
+                             reps=5)
+        nbytes, flops = scan_work(case, 2)
+        t_bytes, t_ops = 1e3 * nbytes / MEM_BW, 1e3 * flops / BF16_PEAK
+        rec = {"slab": scan.slab_width(b, h, dk, dv, n_sm), "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": max(t_bytes, t_ops), "bound_bytes_ms": t_bytes,
+               "bound_ops_ms": t_ops, "flops": flops, "bytes": nbytes,
+               "tflops": flops / ms / 1e9}
+        if case is ZAMBA_SCAN:
+            rec["ms_by_slab"] = {vt: device_ms(
+                lambda: scan.launch(q, k, v, la, vt), reps=5)
+                for vt in scan.SLABS}
+        out[name] = rec
+        log(f"ssm_scan at {name}'s prefill shape {case[:5]}, bf16: "
+            + json.dumps(rec))
+        del q, k, v, la
+    return out
+
+
+# ----------------------------------------------------------------- phase 7
+@contextlib.contextmanager
+def plain_scan(chunk: int | None = None, check: list | None = None):
+    """The models' scan seam: ``ops.ssm_scan`` replaced by the plain
+    ``chunked_linear_scan`` (at the caller's chunk, or at ``chunk``) while
+    the block runs.  With ``check``, every call also launches the kernel on
+    the same inputs and appends its row-relative error against the kernel's
+    arithmetic: the plain output itself for fp32 inputs, ``scan_fp32`` for
+    bf16 and fp16 ones."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.nn.recurrent import chunked_linear_scan
+
+    kernel = scan.ssm_scan
+
+    def seam(q, k, v, la, chunk_=128):
+        y = chunked_linear_scan(q, k, v, la, chunk=chunk or chunk_)[0]
+        if check is not None:
+            want = y if q.dtype == torch.float32 else scan.scan_fp32(
+                q, k, v, la)
+            check.append(scan.row_rel_err(kernel(q, k, v, la, chunk=chunk_),
+                                          want))
+        return y
+
+    scan.ssm_scan = lambda q, k, v, la, chunk=128: seam(q, k, v, la, chunk)
+    try:
+        yield
+    finally:
+        scan.ssm_scan = kernel
+
+
+def _to(params, dtype):
+    return {k: _to(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in params.items()}
+
+
+def _n_scans(cfg) -> int:
+    if cfg.family == "ssm":
+        return cfg.n_layers - cfg.n_layers // cfg.slstm_every
+    return cfg.n_layers
+
+
+@torch.inference_mode()
+def recurrent_slice_phase(arch: str, dev, card: str) -> dict:
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    cfg = configs.get(arch)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for d in params.values()
+                   for t in (d.values() if isinstance(d, dict) else [d]))
+    log(f"{arch} at full width and depth on the card: {n_params} parameters "
+        f"(bf16) drawn in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    B, S = 4, 2048
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    prefill = serve.make_prefill_step(cfg)
+    prefill(params, {"tokens": tokens[:, :128]})            # warm-up
+
+    reset_all_counts()                        # ---- main path starts here
+    logits, prefill_s = timed(lambda: prefill(params, {"tokens": tokens}))
+    launches, plain = all_counts()            # ---- main path ends here
+    want_launches = {"fused_chain": 0, "fused_horizontal": 0,
+                     "flash_attention": 0, "ssm_scan": _n_scans(cfg)}
+    if launches != want_launches or any(plain.values()):
+        raise AssertionError(f"{arch} prefill: launches {launches}, plain "
+                             f"calls {plain}")
+    if tuple(logits.shape) != (B, S, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    with plain_scan():
+        want, plain_s = timed(lambda: prefill(params, {"tokens": tokens}))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        ref = serve.make_prefill_step(cfg32)(_to(params, torch.float32),
+                                             {"tokens": tokens})
+    # every launch of the path on the model's own inputs (those of the plain
+    # prefill), against the kernel's arithmetic in fp32
+    per_launch: list = []
+    with plain_scan(check=per_launch):
+        prefill(params, {"tokens": tokens})
+    tol = scan.OUT_REL_TOL[torch.bfloat16]
+    if len(per_launch) != _n_scans(cfg) or not max(per_launch) <= tol:
+        raise AssertionError(f"{arch} bf16 launches on the model's inputs: "
+                             f"max row-relative |err| {max(per_launch)} > "
+                             f"{tol} ({len(per_launch)} launches)")
+    diff = float((logits.float() - want.float()).abs().max())
+    err_kernel = float((logits.float() - ref).abs().max())
+    err_plain = float((want.float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    agree = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+    del ref, want
+    if not err_kernel <= LOGITS_KERNEL_VS_PLAIN * err_plain:
+        raise AssertionError(f"{arch} prefill logits vs fp32: max |diff| "
+                             f"{err_kernel} > {LOGITS_KERNEL_VS_PLAIN} x "
+                             f"{err_plain} (the plain scan's)")
+    log(f"{arch} prefill {B}x{S} (ssm_scan kernel): {prefill_s * 1e3:.1f} ms"
+        f", {B * S / prefill_s:.0f} tokens/s; plain-scan prefill "
+        f"{plain_s * 1e3:.1f} ms; logits max |kernel - plain| {diff}, "
+        f"against the fp32 prefill of the same weights: kernel {err_kernel}"
+        f", plain {err_plain} (largest |logit| {scale}); argmax agreement "
+        f"{agree}; each of the {len(per_launch)} launches on the model's "
+        f"inputs against scan_fp32: max row-relative |err| "
+        f"{max(per_launch)}")
+    prof_prefill = profile_device(lambda: prefill(params, {"tokens": tokens}),
+                                  1, f"{arch}_prefill_trace.json")
+    log(f"{arch} prefill profiled: " + json.dumps(prof_prefill))
+    del logits
+    torch.cuda.empty_cache()
+
+    prompt = rng.integers(0, cfg.vocab, (B, 128))
+    serve.serve_loop(cfg, params, prompt[:, :8], 4, dev)      # warm-up
+    reset_all_counts()
+    served = serve.serve_loop(cfg, params, prompt, 32, dev)
+    if any(all_counts()[0].values()) or any(all_counts()[1].values()) \
+            or served["tokens"].shape != (B, 32) \
+            or not ((0 <= served["tokens"]).all()
+                    and (served["tokens"] < cfg.vocab).all()):
+        raise AssertionError(f"{arch} serve loop: {served['tokens'].shape}, "
+                             f"counts {all_counts()}")
+    pbd_tps = B * 127 / served["prefill_s"]
+    dec_tps = B * 32 / served["decode_s"]
+    log(f"{arch} serve loop (batch {B}): prefill-by-decode of 127 tokens "
+        f"{pbd_tps:.1f} tokens/s, 32 greedy steps {dec_tps:.1f} tokens/s "
+        f"({served['decode_s'] / 32 * 1e3:.2f} ms/step)")
+    del params
+    torch.cuda.empty_cache()
+
+    checks = depth_check(arch, cfg, DEPTH_CHECKS[arch], tokens[:, :512],
+                         dev)
+    return {"card": card, "prefill_ms": prefill_s * 1e3,
+            "prefill_tokens_per_s": B * S / prefill_s,
+            "plain_scan_prefill_ms": plain_s * 1e3,
+            "logits_max_abs_diff": diff,
+            "logits_err_vs_fp32": {"kernel": err_kernel, "plain": err_plain},
+            "logits_max_abs": scale, "argmax_agreement": agree,
+            "prefill_by_decode_tokens_per_s": pbd_tps,
+            "decode_tokens_per_s": dec_tps, "launches": launches,
+            "prefill_profile": prof_prefill,
+            "launch_err_bf16": max(per_launch), "cut_depth": checks}
+
+
+@torch.inference_mode()
+def depth_check(arch: str, cfg, fields: dict, toks, dev) -> dict:
+    """The model at full width and a cut depth (``fields`` of its config),
+    weights drawn in bf16 from seed 1 and also carried to fp32.  In fp32:
+    every launch against the plain scan, kernel prefill against plain
+    prefill and teacher-forced decode against prefill; then the bf16
+    prefill, kernel and plain scan, against the fp32 one."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16", **fields)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    label = f"{arch} " + ", ".join(f"{k}={v}" for k, v in fields.items())
+    p16 = api.init_params(cfg16, torch.Generator(device=dev).manual_seed(
+        SEED + 1), dev)
+    p32 = _to(p16, torch.float32)
+    B = toks.shape[0]
+    batch = {"tokens": toks}
+    step32 = serve.make_prefill_step(cfg32)
+    reset_all_counts()
+    got = step32(p32, batch)
+    n32 = all_counts()[0]["ssm_scan"]
+    if n32 != _n_scans(cfg32):
+        raise AssertionError(f"{label} fp32 prefill: {n32} launches")
+    per_launch: list = []
+    with plain_scan(check=per_launch):
+        want = step32(p32, batch)
+    if not max(per_launch) <= SCAN_FP32_TOL:
+        raise AssertionError(f"{label} fp32 launches on the model's inputs: "
+                             f"max row-relative |err| {max(per_launch)}")
+    # the plain path's own fp32 rounding spread (the same prefill with the
+    # plain scan at chunk 64 and at chunk 1, the step-by-step recurrence),
+    # the reading tools/jax_scan_rounding_spread.py takes of the reference
+    spread = 0.0
+    for c in (64, 1):
+        with plain_scan(chunk=c):
+            spread = max(spread, float(
+                (step32(p32, batch) - want).abs().max()))
+    err32 = float((got - want).abs().max())
+    if not err32 <= FP32_PREFILL_TOL:
+        raise AssertionError(f"{label} fp32 kernel vs plain prefill: {err32} "
+                             f"> {FP32_PREFILL_TOL}")
+    short = toks[:, :128]
+    full = step32(p32, {"tokens": short})
+    cache = api.init_cache(cfg32, B, 128, dev)
+    dec = []
+    for t in range(128):
+        lg, cache = api.decode_step(cfg32, p32, cache, short[:, t], t)
+        dec.append(lg)
+    err_dec = float((torch.stack(dec, 1) - full).abs().max())
+    if not err_dec <= FP32_DECODE_TOL:
+        raise AssertionError(f"{label} fp32 decode vs prefill: {err_dec} > "
+                             f"{FP32_DECODE_TOL}")
+    del cache, full, dec
+    scale = float(want.abs().max())
+    step16 = serve.make_prefill_step(cfg16)
+    e_kernel = float((step16(p16, batch).float() - want).abs().max())
+    with plain_scan():
+        e_plain = float((step16(p16, batch).float() - want).abs().max())
+    if not e_plain <= BF16_PLAIN_MAX * scale:
+        raise AssertionError(f"{label} bf16 plain prefill {e_plain} from "
+                             f"fp32: above {BF16_PLAIN_MAX} x {scale}")
+    if not e_kernel <= LOGITS_KERNEL_VS_PLAIN * e_plain:
+        raise AssertionError(f"{label} bf16 prefill vs fp32: kernel "
+                             f"{e_kernel} > {LOGITS_KERNEL_VS_PLAIN} x "
+                             f"{e_plain} (the plain scan's)")
+    log(f"{label}, full width ({n32} scan launches): fp32 launches on the "
+        f"model's inputs against the plain scan: max row-relative |err| "
+        f"{max(per_launch)}; plain path's own rounding spread (chunk 64 and "
+        f"1 against 128) {spread}; kernel vs plain prefill ({B}x512) max "
+        f"|diff| {err32}; teacher-forced decode vs prefill ({B}x128) "
+        f"{err_dec} (largest |logit| {scale}); bf16 prefill vs fp32: kernel "
+        f"{e_kernel}, plain {e_plain}")
+    del p16, p32, got, want
+    torch.cuda.empty_cache()
+    return {"config": label, "scan_launches": n32,
+            "launch_err_fp32": max(per_launch),
+            "fp32_rounding_spread": spread, "fp32_prefill_err": err32,
+            "fp32_decode_err": err_dec, "logits_max_abs": scale,
+            "bf16_err_vs_fp32": {"kernel": e_kernel, "plain": e_plain}}
+
+
 def main() -> int:
     global OUT
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -683,8 +1078,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
-    from repro_torch.kernels.conv_fused import ops as conv
-    from repro_torch.kernels.flash_attention import ops as flash
 
     os.makedirs(OUT, exist_ok=True)
     dev = torch.device("cuda")
@@ -702,8 +1095,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log("  ptxas:", line.strip())
     log(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
-    conv.library()
-    flash.library()
+    for mod in _kernel_ops():
+        mod.library()
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     models = {name: prepare_model(name, dev)
@@ -719,6 +1113,16 @@ def main() -> int:
     flash_t = flash_timing_phase(dev)
     lm = lm_slice_phase(dev, card)
     log(f"Granite-8B serving on {card}: " + json.dumps(lm))
+    log(f"phases 2-5 took {time.perf_counter() - t_start:.1f} s")
+    scan_errs = scan_kernel_phase(dev)
+    scan_t = scan_timing_phase(dev)
+    recurrent = {}
+    for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+        t0 = time.perf_counter()
+        recurrent[arch] = recurrent_slice_phase(arch, dev, card)
+        log(f"{arch} serving on {card} ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(recurrent[arch]))
+    log(f"phases 2-7 took {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, replaces in (
@@ -746,7 +1150,24 @@ def main() -> int:
         "bound_by": ("bytes" if flash_t["bound_bytes_ms"]
                      >= flash_t["bound_ops_ms"] else "operations"),
         "library_ms": flash_t["library_ms"]})
+    xl = scan_t["xlstm-1.3b"]
+    kernels.append({
+        "name": "ssm_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES,
+        "launches": recurrent["xlstm-1.3b"]["launches"]["ssm_scan"],
+        "max_abs_err": scan_errs["xlstm prefill bfloat16 slab 32"],
+        "ms": xl["ms"], "plain_ms": xl["plain_ms"],
+        "bound_ms": xl["bound_ms"],
+        "bound_by": ("bytes" if xl["bound_bytes_ms"] >= xl["bound_ops_ms"]
+                     else "operations"),
+        "library_ms": None,
+        "paths": {arch: {"launches": recurrent[arch]["launches"]["ssm_scan"],
+                         "ms": scan_t[arch]["ms"],
+                         "plain_ms": scan_t[arch]["plain_ms"],
+                         "bound_ms": scan_t[arch]["bound_ms"]}
+                  for arch in recurrent}})
     checked["flash_max_abs_err"] = flash_errs
+    checked["ssm_scan_err"] = scan_errs
     print(json.dumps({"kernels": kernels, "checked": checked,
                       "card": card}), flush=True)
     print(smi(), flush=True)

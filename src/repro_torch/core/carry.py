@@ -48,5 +48,7 @@ def lm_params_from_reference(params: dict, device="cpu") -> dict:
 
 
 def lm_cache_from_reference(cache: dict, device="cpu") -> dict:
-    """The reference LM's KV cache ({"k", "v"} arrays) as tensors."""
+    """The reference LM's decode cache, a flat dict of arrays (``{"k",
+    "v"}``; xLSTM's ``{"m_state", "s_h", "s_c"}``; Zamba2's ``{"ssm", "k",
+    "v"}``), as tensors."""
     return {k: _tensor(v, device) for k, v in cache.items()}

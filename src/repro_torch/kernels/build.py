@@ -28,6 +28,7 @@ SOURCES = {
     "conv_fused": KERNELS / "conv_fused" / "csrc" / "conv_fused.cu",
     "flash_attention": KERNELS / "flash_attention" / "csrc" /
     "flash_attention.cu",
+    "ssm_scan": KERNELS / "ssm_scan" / "csrc" / "ssm_scan.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

@@ -1,9 +1,10 @@
 # Ported from src/repro/launch/serve.py (jax -> torch).
 """Serving steps: prefill (logits over a full prompt batch) and decode
-(one token against the KV cache), plus a small batched-request loop.
+(one token against the KV/SSM state), plus a small batched-request loop.
 
     python -m repro_torch.launch.serve --arch granite-8b
-    python -m repro_torch.launch.serve --arch granite-8b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-1.3b
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -22,6 +23,9 @@ from repro_torch.models import api
 
 
 def make_prefill_step(cfg: ArchConfig):
+    """Prefill of the dense/MoE/VLM (``nn.model``), ``ssm`` (``nn.xlstm``)
+    and ``hybrid`` (``nn.zamba``) families; the last two take no patch
+    embeddings, which a text batch does not carry."""
     mod = api._mod(cfg)             # raises for a family not ported yet
 
     def prefill(params, batch):

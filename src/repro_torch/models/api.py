@@ -2,13 +2,13 @@
 """Family dispatcher: one API over the ported architectures.
 
 * ``init_params(cfg, generator, device)``  real tensors on the device
-* ``init_cache / decode_step``             serving path (one token, KV cache)
+* ``init_cache / decode_step``             serving (one token, KV/SSM state)
 
-The dense, MoE and VLM families run ``nn.model``.  The ``ssm``, ``hybrid``
-and ``audio`` families (xLSTM, Zamba2, Seamless) and the dry-run's
-``abstract_params``/``input_specs`` are not ported yet (ROADMAP, Queue 1
-item 7).  Every entry point runs on CUDA unless the caller passes
-``device="cpu"``.
+The dense, MoE and VLM families run ``nn.model``, the ``ssm`` family
+(xLSTM) ``nn.xlstm`` and the ``hybrid`` family (Zamba2) ``nn.zamba``.  The
+``audio`` family (Seamless) and the dry-run's ``abstract_params``/
+``input_specs`` are not ported yet (ROADMAP, Queue 1 items 7 and 8).  Every
+entry point runs on CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -16,14 +16,18 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.executor import resolve_device
-from repro_torch.nn import model
+from repro_torch.nn import model, xlstm, zamba
 
-NOT_PORTED = {"ssm": "xLSTM", "hybrid": "Zamba2", "audio": "Seamless"}
+NOT_PORTED = {"audio": "Seamless"}
 
 
 def _mod(cfg: ArchConfig):
     if cfg.family in ("dense", "moe", "vlm"):
         return model
+    if cfg.family == "ssm":
+        return xlstm
+    if cfg.family == "hybrid":
+        return zamba
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family ({NOT_PORTED[cfg.family]}) "

@@ -1,6 +1,7 @@
 """The port's CUDA kernels and the fused executor on the card, against the
 plain versions (int8 bit equality for the conv kernels, the stated
-tolerances for flash attention), with the port alone (no jax).
+tolerances for flash attention and the linear scan), with the port alone
+(no jax).
 Marked ``cuda``: they skip where CUDA is absent; on a GPU machine run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``."""
 import numpy as np
@@ -94,3 +95,84 @@ def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, d, off, causal):
         else:
             want = flash.attention_fp32(q, k, v, q_offset=off, causal=causal)
             assert flash.row_rel_err(got, want) <= flash.OUT_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,bcast", [
+    (2, 200, 3, 64, 96, False),       # ragged sub-chunk, V not a slab multiple
+    (2, 256, 2, 40, 24, False),       # K != V, K not a tile multiple
+    (1, 256, 32, 64, 128, True),      # Zamba2's heads, q/k with stride 0
+    (1, 128, 1, 1024, 64, False),     # xLSTM's head dim, narrow V
+    (1, 32, 2, 8, 8, False),
+])
+def test_ssm_scan_kernel_matches_plain(dev, b, s, h, dk, dv, bcast):
+    """At both column slab widths: fp32 against ``chunked_linear_scan`` at
+    2e-4 of each output row's largest value (the JAX package's
+    Pallas-vs-chunked tolerance), bf16 and fp16 against ``scan_fp32`` at
+    ``OUT_REL_TOL``."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.nn import recurrent as rec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(s + dk)
+    hq = 1 if bcast else h
+    q, k = ((torch.randn((b, s, hq, dk), generator=gen, device=dev)
+             / dk ** 0.5).expand(b, s, h, dk) for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=gen, device=dev)
+    la = torch.nn.functional.logsigmoid(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    want32 = rec.chunked_linear_scan(q, k, v, la, chunk=rec.chunk_for(s))[0]
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        qt, kt, vt = (t.to(dtype) for t in (q, k, v))
+        want = want32 if dtype == torch.float32 else scan.scan_fp32(
+            qt, kt, vt, la)
+        tol = scan.OUT_REL_TOL.get(dtype, 2e-4)
+        for width in scan.SLABS:
+            if scan.library().repro_ssm_scan_smem(dk, width) > scan.MAX_SMEM:
+                continue
+            scan.reset_counts()
+            got = scan.launch(qt, kt, vt, la, width)
+            torch.cuda.synchronize()
+            assert scan.LAUNCHES["ssm_scan"] == 1
+            assert got.dtype == dtype and torch.isfinite(got).all()
+            assert scan.row_rel_err(got, want) <= tol, (dtype, width)
+        scan.reset_counts()
+        scan.ssm_scan(qt, kt, vt, la, chunk=rec.chunk_for(s))
+        assert scan.LAUNCHES["ssm_scan"] == 1
+        assert not scan.PLAIN_CALLS["ssm_scan"]
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])
+def test_recurrent_prefill_on_card_matches_cpu(dev, arch):
+    """fp32 smoke models: the card's prefill (one kernel launch per
+    recurrent layer) against the CPU's (the plain scan) on the same
+    weights, and the card's decode against its prefill."""
+    from repro_torch import configs
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get(arch).smoke()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: ({kk: t.to(dev) for kk, t in v.items()}
+                   if isinstance(v, dict) else v.to(dev))
+               for k, v in params.items()}
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 200)))
+    prefill = serve.make_prefill_step(cfg)
+    want = prefill(params, {"tokens": toks})
+    scan.reset_counts()
+    got = prefill(on_card, {"tokens": toks.to(dev)})
+    torch.cuda.synchronize()
+    n_scans = (cfg.n_layers - cfg.n_layers // cfg.slstm_every
+               if cfg.family == "ssm" else cfg.n_layers)
+    assert scan.LAUNCHES["ssm_scan"] == n_scans
+    assert not scan.PLAIN_CALLS["ssm_scan"]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cache = api.init_cache(cfg, 2, 32, dev)
+    outs = []
+    for t in range(32):
+        lg, cache = api.decode_step(cfg, on_card, cache, toks[:, t].to(dev), t)
+        outs.append(lg)
+    torch.testing.assert_close(torch.stack(outs, 1).cpu(), want[:, :32],
+                               rtol=1e-3, atol=1e-3)

@@ -73,6 +73,39 @@ print("BAD", bad, tuple(logits.shape), res["tokens"].shape,
     assert res.stdout.strip() == "BAD [] (2, 16, 512) (2, 4) 4", res.stdout
 
 
+def test_cpu_recurrent_lm_paths_never_load_jax_or_reference():
+    """xLSTM and Zamba2 at smoke size: prefill through the scan wrapper's
+    plain version, then the serve loop, with no jax in the process."""
+    code = """
+import sys
+import numpy as np
+import torch
+from repro_torch import configs
+from repro_torch.kernels.ssm_scan import ops
+from repro_torch.launch import serve
+from repro_torch.models import api
+out = []
+for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+    cfg = configs.get(arch).smoke()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                             (2, 16)))
+    ops.reset_counts()
+    logits = serve.make_prefill_step(cfg)(params, {"tokens": toks})
+    res = serve.serve_loop(cfg, params, toks.numpy(), 4, device="cpu")
+    out.append((tuple(logits.shape), res["tokens"].shape,
+                ops.PLAIN_CALLS["ssm_scan"]))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad, out)
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == ("BAD [] [((2, 16, 512), (2, 4), 2), "
+                                  "((2, 16, 512), (2, 4), 8)]"), res.stdout
+
+
 def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
@@ -114,6 +147,24 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         api.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "granite-8b", "--smoke"])
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])
+def test_recurrent_lm_entry_points_default_to_cuda(monkeypatch, arch):
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get(arch).smoke()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", arch, "--smoke"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
