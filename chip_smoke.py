@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits non-zero):
    and ResNet50-224 (strategies from ``pathsearch.search(g, ZU2)``, weights
    calibrated on the card), a tile sweep with ragged tiles, hand-built
    chains (avg and ceil-mode pools, negative shifts, dilation, global
-   pooling); ``fused_horizontal`` on all GoogLeNet-224 horizontal launches.
+   pooling); ``fused_horizontal`` on all GoogLeNet-224 horizontal launches
+   at batch 1 (split-K), 2 and 8, and on hand-made ragged launches (M not a
+   multiple of the tile, N not a multiple of 8, K not a multiple of 32, a
+   split-K case, IC = 3, 3x3 windows at stride 2 with padding).
    Each kernel is timed with CUDA events at the main path's shapes beside
    its plain version (and, for the horizontal 1x1 launches, ``torch._int_mm``
    at the same M, K, N as a yardstick the port never calls).
@@ -29,7 +32,8 @@ Phases (any failure raises and the script exits non-zero):
    heads on 8 kv heads, d=128), SmolLM-360M's (15 on 5, d=64), a ``q_offset`` tail and a
    non-causal call; timed with CUDA events beside the plain version, the
    bound and ``scaled_dot_product_attention`` (a yardstick the port never
-   calls).
+   calls), with the kernel's own tensor work (6 d FLOP per kept pair: P V
+   runs on both halves of P) and its share of the bf16 peak.
 5. The LM slice: Granite-8B at full width (36 layers, random bf16 weights
    from seed 0) on the card: ``make_prefill_step`` with
    ``attn_impl="flash"`` on a 4x2048 prompt (36 flash launches, no plain
@@ -102,6 +106,14 @@ FLASH_CASES = {
     "granite non-causal": (1, 512, 512, 32, 8, 128, 0, False),
 }
 FP32_TOL = 2e-5            # fp32 kernel vs attention_ref, max |diff|
+# hand-made horizontal launches (h, w, ic, oc, kh, kw, stride, pad) at
+# batch 1 and 2: M not a multiple of the tile with N not a multiple of 8
+# and K not a multiple of 32, a split-K case, IC = 3 (the byte-gather path)
+# and 3x3 windows at stride 2 with padding
+HORIZONTAL_RAGGED = [
+    (5, 7, 48, 37, 1, 1, 1, 0), (7, 7, 832, 40, 1, 1, 1, 0),
+    (9, 11, 3, 20, 3, 3, 2, 1), (9, 11, 32, 24, 3, 3, 2, 1),
+    (13, 13, 24, 70, 3, 3, 2, 1)]
 SCAN_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:49"
 SCAN_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 # (b, s, h, k, v, q and k broadcast over the heads) of the scan checks
@@ -150,6 +162,29 @@ def smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def sass_counts(path) -> dict:
+    """Per kernel of a built library, how many of its SASS instructions are
+    wgmma (HGMMA), TMA loads (UTMALDG), int8 MMA (IMMA), 16-bit mma.sync
+    (HMMA) and __dp4a (IDP.4A), from ``cuobjdump -sass``."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not found"}
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {}
+        elif fn is not None:
+            for op in ("HGMMA", "UTMALDG", "IMMA", "HMMA", "IDP.4A"):
+                if op in line:
+                    counts[fn][op] = counts[fn].get(op, 0) + 1
+    return counts
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -318,19 +353,42 @@ def kernel_phase(models, dev) -> dict:
         if launch.kind != "horizontal":
             continue
         prep = ops.prepare_launch(launch, m["qm"], dev)
-        for n in (2, 8):   # 32x32 and 64x64 output tiles
+        for n in (1, 2, 8):   # split-K at batch 1, larger tiles at 8
             x = rand_int8((n,) + tuple(m["g"].shape(launch.in_name)[1:]),
                           gen, dev)
             a = (x, prep["w"], prep["b"], prep["shift"], prep["relu"])
             kw = dict(stride=tuple(launch.stride), pad=tuple(launch.pad))
-            check_equal(ops.fused_horizontal(*a, **kw),
+            check_equal(ops.fused_horizontal(*a, **kw,
+                                             packed=prep["packed"]),
                         ops.fused_horizontal_plain(*a, **kw),
                         f"horizontal {launch.nodes} batch {n}")
         n_horiz += 1
     log(f"fused_horizontal == plain on {n_horiz} GoogLeNet-224 launches at "
-        f"batch 2 and 8")
+        f"batch 1, 2 and 8")
+    n_ragged = 0
+    for h, w, ic, oc, kh, kwd, st, pd in HORIZONTAL_RAGGED:
+        for n in (1, 2):
+            a = (rand_int8((n, h, w, ic), gen, dev),
+                 rand_int8((kh, kwd, ic, oc), gen, dev),
+                 torch.randint(-3000, 3000, (oc,), generator=gen,
+                               dtype=torch.int32).to(dev),
+                 torch.randint(-1, 12, (oc,), generator=gen,
+                               dtype=torch.int32).to(dev),
+                 torch.randint(0, 2, (oc,), generator=gen,
+                               dtype=torch.int32).to(dev))
+            kw = dict(stride=(st, st), pad=(pd, pd))
+            oh, ow = ((h + 2 * pd - kh) // st + 1, (w + 2 * pd - kwd) // st
+                      + 1)
+            plan = ops.horizontal_plan(n * oh * ow, oc, kh * kwd * ic)
+            check_equal(ops.fused_horizontal(*a, **kw),
+                        ops.fused_horizontal_plain(*a, **kw),
+                        f"horizontal {(h, w, ic, oc, kh, kwd, st, pd)} "
+                        f"batch {n} plan {plan}")
+            n_ragged += 1
+    log(f"fused_horizontal == plain on {n_ragged} hand-made ragged, split-K "
+        f"and 3x3 stride-2 launches")
     return {"chain_launches": n_chain, "tiles": n_tiles, "hand": n_hand,
-            "horizontal_launches": n_horiz}
+            "horizontal_launches": n_horiz, "horizontal_ragged": n_ragged}
 
 
 def timing_phase(m, dev) -> dict:
@@ -361,9 +419,11 @@ def timing_phase(m, dev) -> dict:
             a = (x, prep["w"], prep["b"], prep["shift"], prep["relu"])
             kw = dict(stride=tuple(launch.stride), pad=tuple(launch.pad))
             r = rec["fused_horizontal"]
-            k_ms = device_ms(lambda: ops.fused_horizontal(*a, **kw))
+            pk = prep["packed"]            # as the executor passes it
+            k_ms = device_ms(lambda: ops.fused_horizontal(*a, **kw,
+                                                          packed=pk))
             p_ms = device_ms(lambda: ops.fused_horizontal_plain(*a, **kw))
-            err = (ops.fused_horizontal(*a, **kw).to(torch.int32)
+            err = (ops.fused_horizontal(*a, **kw, packed=pk).to(torch.int32)
                    - ops.fused_horizontal_plain(*a, **kw).to(torch.int32))
             kh, kwd, ic, oc = prep["w"].shape
             oh, ow = launch.out_hw
@@ -575,10 +635,16 @@ def flash_timing_phase(dev) -> dict:
         qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
     nbytes, flops = flash_work(GRANITE_PREFILL, 2)
     t_bytes, t_ops = 1e3 * nbytes / MEM_BW, 1e3 * flops / BF16_PEAK
+    # the kernel's own tensor work: P V runs on P's hi and lo halves, so 6 d
+    # FLOP per kept pair against the function's 4 d
+    tc_flops = flops * 6 // 4
     rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": max(t_bytes, t_ops), "bound_bytes_ms": t_bytes,
            "bound_ops_ms": t_ops, "flops": flops, "bytes": nbytes,
-           "tflops": flops / ms / 1e9, "fp32_cuda_core_ms": fp32_ms}
+           "tflops": flops / ms / 1e9, "kernel_tensor_flops": tc_flops,
+           "kernel_tensor_tflops": tc_flops / ms / 1e9,
+           "kernel_tensor_share_of_bf16_peak": tc_flops * 1e3 / ms
+           / BF16_PEAK, "fp32_cuda_core_ms": fp32_ms}
     log("flash_attention at Granite-8B prefill (4x2048, 32/8 heads, d=128, "
         "bf16): " + json.dumps(rec))
     return rec
@@ -1092,9 +1158,12 @@ def main() -> int:
     for name, (path, out) in built.items():
         log(f"built {os.path.relpath(path, ROOT)}")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "Function properties")):
                 log("  ptxas:", line.strip())
     log(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
+    for name, (path, _) in built.items():
+        log(f"sass of {name}: " + json.dumps(sass_counts(path)))
     for mod in _kernel_ops():
         mod.library()
     t_start = time.perf_counter()
@@ -1125,14 +1194,16 @@ def main() -> int:
     log(f"phases 2-7 took {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
-    for name, replaces in (
+    for name, replaces, cuda_kernels in (
             ("fused_chain",
-             "src/repro/kernels/conv_fused/conv_fused.py:246"),
+             "src/repro/kernels/conv_fused/conv_fused.py:246",
+             ["chain_kernel"]),
             ("fused_horizontal",
-             "src/repro/kernels/conv_fused/conv_fused.py:333")):
+             "src/repro/kernels/conv_fused/conv_fused.py:333",
+             ["horizontal_mma_kernel"])):
         t = timing[name]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "kernels": cuda_kernels,
             "source": "src/repro_torch/kernels/conv_fused/csrc/conv_fused.cu",
             "replaces": replaces, "launches": served["launches"][name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -1142,6 +1213,10 @@ def main() -> int:
             "library_ms": t["library_ms"]})
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "kernels": ["flash_wgmma_kernel (bf16/fp16, d 64 and 128)",
+                    "flash_kernel (fp32; d 16 and 32)"],
+        "kernel_tensor_share_of_bf16_peak":
+            flash_t["kernel_tensor_share_of_bf16_peak"],
         "replaces": FLASH_REPLACES,
         "launches": lm["launches"]["flash_attention"],
         "max_abs_err": flash_errs["granite prefill bfloat16"],
@@ -1153,6 +1228,7 @@ def main() -> int:
     xl = scan_t["xlstm-1.3b"]
     kernels.append({
         "name": "ssm_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "kernels": ["ssm_scan_kernel"],
         "replaces": SCAN_REPLACES,
         "launches": recurrent["xlstm-1.3b"]["launches"]["ssm_scan"],
         "max_abs_err": scan_errs["xlstm prefill bfloat16 slab 32"],

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.executor import resolve_device
 from repro_torch.core.quantize import QuantizedModel
 
 
@@ -40,15 +41,18 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def lm_params_from_reference(params: dict, device="cpu") -> dict:
+def lm_params_from_reference(params: dict, device=None) -> dict:
     """The reference LM's parameter pytree (nested dicts of arrays) as the
-    port's nested dicts of tensors, dtypes kept."""
-    return {k: lm_params_from_reference(v, device) if isinstance(v, dict)
-            else _tensor(v, device) for k, v in params.items()}
+    port's nested dicts of tensors, dtypes kept, on ``device`` (None means
+    CUDA, and raises where CUDA is absent; tests pass "cpu")."""
+    dev = resolve_device(device)
+    return {k: lm_params_from_reference(v, dev) if isinstance(v, dict)
+            else _tensor(v, dev) for k, v in params.items()}
 
 
-def lm_cache_from_reference(cache: dict, device="cpu") -> dict:
+def lm_cache_from_reference(cache: dict, device=None) -> dict:
     """The reference LM's decode cache, a flat dict of arrays (``{"k",
     "v"}``; xLSTM's ``{"m_state", "s_h", "s_c"}``; Zamba2's ``{"ssm", "k",
-    "v"}``), as tensors."""
-    return {k: _tensor(v, device) for k, v in cache.items()}
+    "v"}``), as tensors on ``device`` (None means CUDA, as above)."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in cache.items()}

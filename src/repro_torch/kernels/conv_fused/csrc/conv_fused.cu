@@ -15,23 +15,24 @@
 // tile.  Image borders are padded virtually: a load outside the input reads
 // the first stage's pad identity, so the launcher never pads in memory.
 //
-// horizontal_kernel replaces fused_horizontal_pallas (same file, body
-// _horizontal_kernel): sibling convs over OC-stacked weights as one implicit
-// GEMM (M = output pixels, K = KH*KW*IC, N = sum of OC) with 64x64 output
-// tiles (32x32 when the grid would be small), K steps of 32 staged in shared
-// memory, __dp4a int8 dot products with int32 accumulation, and a
-// per-channel bias / shift / ReLU epilogue.
+// horizontal_mma_kernel replaces fused_horizontal_pallas (same file, body
+// _horizontal_kernel): sibling convs over OC-stacked weights as one
+// implicit GEMM (M = output pixels, K = KH*KW*IC, N = sum of OC) on the
+// int8 tensor cores (mma.sync m16n8k32), weights packed once by the
+// launcher, K steps pipelined through shared memory, and split-K so that
+// small images still fill the SMs; see its note below.
 //
 // What bounds them on an H100: at batch 1 the 51 launches of a GoogLeNet-224
 // image read and write about 14 MB (each launch's inputs, weights and output
 // once) and do about 1.6 G int8 MACs, so the card's bound is bytes: about
 // 4 us at 3.35 TB/s, against about 1.6 us of int8 tensor-core work at
-// 1,979 TOP/s.  These kernels run far above
-// that bound (PERF.md): they are issue- and latency-bound.  Conv stages use
-// __dp4a on CUDA cores (four output channels per thread in the chain kernel,
-// 4x4 or 2x2 micro-tiles in the horizontal one), weights are read through
-// L1/L2 rather than staged, and small grids leave SMs idle.  Tensor cores
-// (mma.sync / wgmma int8), TMA and pipelining are later work.
+// 1,979 TOP/s.  The 9 horizontal launches alone move about 3.5 MB (1.05
+// us) for 0.29 G MACs (0.3 us): far below a launch's own latency, so that
+// kernel is built for latency (tensor cores, 16-byte copies, no index
+// arithmetic per byte, 132 SMs busy at M = 49).  The chain kernel runs far
+// above the bound (PERF.md): it is issue- and latency-bound, with __dp4a
+// on CUDA cores (four output channels per thread), weights read through
+// L1/L2 rather than staged; tensor cores and TMA for it are later work.
 //
 // Numerics are exactly the reference's int8_ops: int32 accumulation,
 // round-half-away-from-zero shifts (a negative shift is a left shift, done
@@ -46,7 +47,6 @@
 #define HDR 32
 #define STG 32
 #define THREADS 256
-#define N_SM 132   // H100 SXM
 
 // One stage record; field order matches ops.chain_plan.
 struct Stage {
@@ -329,102 +329,236 @@ chain_kernel(const __grid_constant__ ChainParams p) {
 }
 
 // ------------------------------------------------------------- horizontal
-#define HBK 32
+// horizontal_mma_kernel: sibling convs over OC-stacked weights as one
+// implicit GEMM (M = output pixels, K = KH*KW*IC, N = sum of OC) on the
+// int8 tensor cores, mma.sync m16n8k32 s8 x s8 -> s32.  The weights come
+// packed once by the launcher (ops.pack_horizontal): OC-major, K
+// contiguous, K padded to HBK and OC to HBN with zeros, bias/shift/ReLU
+// padded to match, so B tiles are whole 16-byte rows.  A block of 4 warps
+// (2 x 2) computes a BM x 64 output tile (BM = 64 or 32) over its share of
+// K: K steps of 64 staged three deep in shared memory by cp.async, rows of
+// 16-byte chunks swizzled by (chunk ^ (row / 2) % 4) so that ldmatrix reads
+// no bank twice.  Where IC is a multiple of 16 and x 16-byte aligned (every
+// GoogLeNet launch) an A row is 16-byte cp.async copies of the NHWC input,
+// the pixel's (n, iy, ix) computed once per row and zero-fill standing for
+// padding and ragged M and K; any other shape gathers A byte by byte.
+// With split > 1, blockIdx.z takes a slice of the K steps, adds its int32
+// partial tile into a zeroed scratch with atomicAdd, and the last block of
+// each tile (a counter beside the scratch) applies the epilogue; integer
+// sums are exact in any order, so the result is bit-exact.
+#define HBK 64          // K bytes per step
+#define HBN 64          // output channels per tile
+#define HSTAGES 3
+#define HTHREADS 128
 
 struct HorizontalParams {
   int N, H, W, IC, x_sn, x_sh, x_sw, KH, KW, SH, SW, PH, PW, OH, OW, OC;
+  int Kp, Np, split;
   const int8_t* x;
-  const int8_t* w;      // (KH*KW*IC, OC): the HWIO panel, flattened
-  const int32_t* b;
+  const int8_t* w;      // (Np, Kp): packed, OC-major, K contiguous
+  const int32_t* b;     // (Np,) each
   const int32_t* shift;
   const int32_t* relu;
   int8_t* out;
+  int32_t* scratch;     // split > 1: (M, Np) partial sums, then counters
 };
 
-// 16x16 threads, each computing a TM x TM micro-tile of a (16*TM)^2 output
-// tile: TM=4 (64x64) for large grids, TM=2 (32x32) when 64x64 tiles would
-// leave SMs idle.
-template <int TM>
-__global__ void __launch_bounds__(256)
-horizontal_kernel(const __grid_constant__ HorizontalParams p) {
-  constexpr int BM = 16 * TM;
-  __shared__ __align__(16) int8_t As[BM][HBK + 4];
-  __shared__ __align__(16) int8_t Bs[BM][HBK + 4];
+__device__ __forceinline__ uint32_t hsmem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void hcp16(uint32_t dst, const void* src,
+                                      bool valid) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+// byte offset of 16-byte chunk c of row r in a [rows][HBK] tile
+__device__ __forceinline__ int hswz(int r, int c) {
+  return r * HBK + ((c ^ ((r >> 1) & 3)) << 4);
+}
+__device__ __forceinline__ void hldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// MT: 16-row MMA tiles per warp (BM = 32 MT); VEC: 16-byte A copies
+template <int MT, bool VEC>
+__global__ void __launch_bounds__(HTHREADS)
+horizontal_mma_kernel(const __grid_constant__ HorizontalParams p) {
+  constexpr int BM = 32 * MT;
+  __shared__ __align__(128) int8_t As[HSTAGES][BM * HBK];
+  __shared__ __align__(128) int8_t Bs[HSTAGES][HBN * HBK];
+  __shared__ int last_block;
   const int M = p.N * p.OH * p.OW;
   const int K = p.KH * p.KW * p.IC;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BM;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  int acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int jj = 0; jj < TM; ++jj) acc[i][jj] = 0;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * HBN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int n_steps = p.Kp / HBK / p.split;
+  const int kb0 = blockIdx.z * n_steps;
 
-  for (int k0 = 0; k0 < K; k0 += HBK) {
-    for (int e = threadIdx.x; e < BM * HBK; e += 256) {
-      const int mm = e / HBK;
-      const int kk = e % HBK;
-      const int m = m0 + mm;
-      const int kidx = k0 + kk;
-      int8_t v = 0;
-      if (m < M && kidx < K) {
-        const int ic = kidx % p.IC;
-        const int t = kidx / p.IC;
-        const int kj = t % p.KW;
-        const int ki = t / p.KW;
-        const int ox = m % p.OW;
-        const int t2 = m / p.OW;
-        const int oy = t2 % p.OH;
-        const int nn = t2 / p.OH;
-        const int iy = oy * p.SH - p.PH + ki;
-        const int ix = ox * p.SW - p.PW + kj;
-        if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
-          v = p.x[(long long)nn * p.x_sn + (long long)iy * p.x_sh
-                  + (long long)ix * p.x_sw + ic];
+  // A rows this thread copies (VEC): row tid / 4 (+ 32), chunk tid % 4
+  int a_n[MT], a_iy[MT], a_ix[MT];
+  bool a_ok[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int m = m0 + tid / 4 + 32 * i;
+    a_ok[i] = m < M;
+    const int mm = a_ok[i] ? m : 0;
+    const int ox = mm % p.OW, t2 = mm / p.OW;
+    a_n[i] = t2 / p.OH;
+    a_iy[i] = (t2 % p.OH) * p.SH - p.PH;
+    a_ix[i] = ox * p.SW - p.PW;
+  }
+
+  auto load = [&](int kb, int st) {
+    const int k0 = kb * HBK;
+    int8_t* as = As[st];
+    if constexpr (VEC) {
+      const int c = tid & 3;
+      const int k = k0 + 16 * c;
+      const int t = k / p.IC, ic = k - t * p.IC;
+      const int kj = t % p.KW, ki = t / p.KW;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = tid / 4 + 32 * i;
+        const int iy = a_iy[i] + ki, ix = a_ix[i] + kj;
+        const bool ok = a_ok[i] && k < K && iy >= 0 && iy < p.H && ix >= 0
+                        && ix < p.W;
+        const int8_t* src = ok ? p.x + (long long)a_n[i] * p.x_sn
+                                     + (long long)iy * p.x_sh
+                                     + (long long)ix * p.x_sw + ic
+                               : p.x;
+        hcp16(hsmem(as + hswz(r, c)), src, ok);
       }
-      As[mm][kk] = v;
+    } else {
+      for (int e = tid; e < BM * HBK; e += HTHREADS) {
+        const int r = e / HBK, kk = e % HBK;
+        const int m = m0 + r, k = k0 + kk;
+        int8_t v = 0;
+        if (m < M && k < K) {
+          const int ic = k % p.IC, t = k / p.IC;
+          const int kj = t % p.KW, ki = t / p.KW;
+          const int ox = m % p.OW, t2 = m / p.OW;
+          const int oy = t2 % p.OH, nn = t2 / p.OH;
+          const int iy = oy * p.SH - p.PH + ki, ix = ox * p.SW - p.PW + kj;
+          if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
+            v = p.x[(long long)nn * p.x_sn + (long long)iy * p.x_sh
+                    + (long long)ix * p.x_sw + ic];
+        }
+        as[hswz(r, kk >> 4) + (kk & 15)] = v;
+      }
     }
-    for (int e = threadIdx.x; e < HBK * BM; e += 256) {
-      const int kk = e / BM;
-      const int nn = e % BM;
-      const int kidx = k0 + kk;
-      const int col = n0 + nn;
-      Bs[nn][kk] = (kidx < K && col < p.OC)
-                       ? p.w[(long long)kidx * p.OC + col] : (int8_t)0;
+    int8_t* bs = Bs[st];
+    for (int i = tid; i < HBN * HBK / 16; i += HTHREADS) {
+      const int r = i >> 2, c = i & 3;
+      hcp16(hsmem(bs + hswz(r, c)),
+            p.w + (long long)(n0 + r) * p.Kp + k0 + 16 * c, true);
+    }
+  };
+
+  int acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < HSTAGES - 1; ++s) {
+    if (s < n_steps) load(kb0 + s, s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int it = 0; it < n_steps; ++it) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(HSTAGES - 2) : "memory");
+    __syncthreads();
+    if (it + HSTAGES - 1 < n_steps)
+      load(kb0 + it + HSTAGES - 1, (it + HSTAGES - 1) % HSTAGES);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int st = it % HSTAGES;
+    const uint32_t a_base = hsmem(As[st]), b_base = hsmem(Bs[st]);
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {              // two K halves of 32
+      uint32_t af[MT][4], bf[2][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = wm * 16 * MT + i * 16 + (lane & 7)
+                      + ((lane >> 3) & 1) * 8;
+        hldsm_x4(af[i], a_base + hswz(r, 2 * kh + (lane >> 4)));
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = wn * 32 + j * 16 + (lane & 7) + ((lane >> 4) << 3);
+        hldsm_x4(bf[j], b_base + hswz(r, 2 * kh + ((lane >> 3) & 1)));
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_s8(acc[i][j], af[i], bf[j >> 1][2 * (j & 1)],
+                 bf[j >> 1][2 * (j & 1) + 1]);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  if (p.split > 1) {
+    // partial sums into the scratch; the tile's last block finishes it
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + wm * 16 * MT + i * 16 + gq + 8 * (e >> 1);
+          const int col = n0 + wn * 32 + j * 8 + 2 * tq + (e & 1);
+          if (m < M) atomicAdd(p.scratch + (long long)m * p.Np + col,
+                               acc[i][j][e]);
+        }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      int* counter = p.scratch + (long long)M * p.Np
+                     + blockIdx.y * gridDim.x + blockIdx.x;
+      last_block = atomicAdd(counter, 1) == p.split - 1;
     }
     __syncthreads();
+    if (!last_block) return;
+    __threadfence();
 #pragma unroll
-    for (int kk = 0; kk < HBK; kk += 4) {
-      int a[TM], b[TM];
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const int*>(&As[ty * TM + i][kk]);
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int jj = 0; jj < TM; ++jj)
-        b[jj] = *reinterpret_cast<const int*>(&Bs[tx * TM + jj][kk]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int jj = 0; jj < TM; ++jj)
-          acc[i][jj] = __dp4a(a[i], b[jj], acc[i][jj]);
-    }
-    __syncthreads();
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + wm * 16 * MT + i * 16 + gq + 8 * (e >> 1);
+          const int col = n0 + wn * 32 + j * 8 + 2 * tq + (e & 1);
+          if (m < M)
+            acc[i][j][e] = __ldcg(p.scratch + (long long)m * p.Np + col);
+        }
   }
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int jj = 0; jj < TM; ++jj) {
-      const int col = n0 + tx * TM + jj;
-      if (col >= p.OC) continue;
-      int v = round_shift(acc[i][jj] + p.b[col], p.shift[col]);
-      if (p.relu[col]) v = max(v, 0);
-      p.out[(long long)m * p.OC + col] = (int8_t)clamp8(v);
-    }
-  }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm * 16 * MT + i * 16 + gq + 8 * (e >> 1);
+        const int col = n0 + wn * 32 + j * 8 + 2 * tq + (e & 1);
+        if (m >= M || col >= p.OC) continue;
+        int v = round_shift(acc[i][j][e] + p.b[col], p.shift[col]);
+        if (p.relu[col]) v = max(v, 0);
+        p.out[(long long)m * p.OC + col] = (int8_t)clamp8(v);
+      }
 }
 
 // ------------------------------------------------------------- C interface
@@ -458,25 +592,37 @@ extern "C" int repro_fused_chain(const int32_t* desc, int n_desc,
   return (int)cudaGetLastError();
 }
 
+// dims (int32): N, H, W, IC, the x strides (n, h, w), KH, KW, SH, SW, PH,
+// PW, OH, OW, OC, then the packed weights' Kp and Np, the split of the K
+// steps, the tile rows BM (32 or 64) and whether A rows are 16-byte copies
+// (ops.horizontal_plan).  ptrs: x, packed w, b, shift, relu, out, scratch
+// (split > 1: M * Np partial sums and one counter per tile, zeroed).
 extern "C" int repro_fused_horizontal(const int32_t* dims, const int64_t* ptrs,
                                       void* stream) {
   HorizontalParams p;
-  memcpy(&p, dims, 16 * sizeof(int32_t));
+  memcpy(&p, dims, 19 * sizeof(int32_t));
+  const int bm = dims[19], vec = dims[20];
   p.x = reinterpret_cast<const int8_t*>(ptrs[0]);
   p.w = reinterpret_cast<const int8_t*>(ptrs[1]);
   p.b = reinterpret_cast<const int32_t*>(ptrs[2]);
   p.shift = reinterpret_cast<const int32_t*>(ptrs[3]);
   p.relu = reinterpret_cast<const int32_t*>(ptrs[4]);
   p.out = reinterpret_cast<int8_t*>(ptrs[5]);
+  p.scratch = reinterpret_cast<int32_t*>(ptrs[6]);
   const int M = p.N * p.OH * p.OW;
   if (M <= 0 || p.OC <= 0) return 0;
-  const int tiles64 = ((M + 63) / 64) * ((p.OC + 63) / 64);
-  if (tiles64 >= 2 * N_SM) {
-    dim3 grid((M + 63) / 64, (p.OC + 63) / 64);
-    horizontal_kernel<4><<<grid, 256, 0, (cudaStream_t)stream>>>(p);
+  if ((bm != 32 && bm != 64) || p.split < 1 || p.Kp % HBK || p.Np % HBN
+      || (p.Kp / HBK) % p.split || p.Np < p.OC
+      || p.Kp < p.KH * p.KW * p.IC || (p.split > 1 && !p.scratch))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((M + bm - 1) / bm, p.Np / HBN, p.split);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bm == 64) {
+    if (vec) horizontal_mma_kernel<2, true><<<grid, HTHREADS, 0, st>>>(p);
+    else horizontal_mma_kernel<2, false><<<grid, HTHREADS, 0, st>>>(p);
   } else {
-    dim3 grid((M + 31) / 32, (p.OC + 31) / 32);
-    horizontal_kernel<2><<<grid, 256, 0, (cudaStream_t)stream>>>(p);
+    if (vec) horizontal_mma_kernel<1, true><<<grid, HTHREADS, 0, st>>>(p);
+    else horizontal_mma_kernel<1, false><<<grid, HTHREADS, 0, st>>>(p);
   }
   return (int)cudaGetLastError();
 }

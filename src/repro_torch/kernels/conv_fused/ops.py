@@ -488,7 +488,50 @@ def fused_chain(x, weights, biases, sides, *, chain, oh, ow, oc,
 
 
 # ------------------------------------------------------- horizontal kernel
-def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad):
+HBK = 64        # K bytes per step of the horizontal kernel
+HBN = 64        # output channels per tile
+H_ROWS = (64, 32)   # output pixels per tile, larger first
+
+
+def pack_horizontal(w, b, shift_vec, relu_vec) -> dict:
+    """The horizontal kernel's operands, laid out once: the HWIO weights
+    ``w`` (KH, KW, IC, OC) as an (Np, Kp) int8 matrix, OC-major with K =
+    (kh, kw, ic) contiguous, K padded to ``HBK`` and OC to ``HBN`` with
+    zeros; bias, shift and ReLU vectors padded to Np."""
+    kh, kw, ic, oc = w.shape
+    k = kh * kw * ic
+    kp, np_ = -(-k // HBK) * HBK, -(-oc // HBN) * HBN
+    wp = torch.zeros((np_, kp), dtype=torch.int8, device=w.device)
+    wp[:oc, :k] = w.reshape(k, oc).t()
+
+    def pad(t):
+        out = torch.zeros(np_, dtype=torch.int32, device=t.device)
+        out[:oc] = t
+        return out
+    return {"w": wp, "b": pad(b), "shift": pad(shift_vec),
+            "relu": pad(relu_vec), "hwio": tuple(w.shape)}
+
+
+def horizontal_plan(m: int, n: int, k: int, n_sm: int = N_SM) -> dict:
+    """Tile and split of one horizontal launch for ``n_sm`` SMs: the larger
+    tile if its blocks already cover the SMs, else 32-row tiles with the
+    K steps split in as few equal parts as make at least ``n_sm`` blocks
+    (all of them, one step each, where none does)."""
+    steps = -(-k // HBK)
+    n_tiles = -(-n // HBN)
+    for bm in H_ROWS:
+        tiles = -(-m // bm) * n_tiles
+        if tiles >= n_sm:
+            return {"bm": bm, "split": 1, "steps": steps,
+                    "grid": (-(-m // bm), n_tiles, 1)}
+    split = next(s for s in range(1, steps + 1)
+                 if steps % s == 0 and (tiles * s >= n_sm or s == steps))
+    return {"bm": bm, "split": split, "steps": steps,
+            "grid": (-(-m // bm), n_tiles, split)}
+
+
+def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad,
+                       packed=None):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"fused_horizontal: no kernel for device {dev}")
@@ -498,25 +541,44 @@ def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad):
         _check(t, torch.int32, nm, dev)
         if not t.is_contiguous():
             raise ValueError(f"fused_horizontal: {nm} must be contiguous")
-    if x.dim() != 4 or x.stride(3) != 1 or not w.is_contiguous():
+    if x.dim() != 4 or x.stride(3) != 1:
         raise ValueError("fused_horizontal: x must be NHWC with unit channel "
-                         "stride and w contiguous")
+                         "stride")
     n, h, wd, ic = x.shape
     kh, kw, wic, oc = w.shape
     if wic != ic or any(t.shape != (oc,) for t in (b, shift_vec, relu_vec)):
         raise ValueError(f"fused_horizontal: weights {tuple(w.shape)} with "
                          f"x of {ic} channels, vectors of "
                          f"{[tuple(t.shape) for t in (b, shift_vec, relu_vec)]}")
+    if packed is None:
+        packed = pack_horizontal(w, b, shift_vec, relu_vec)
+    elif packed["hwio"] != tuple(w.shape) or packed["w"].device != dev:
+        raise ValueError(f"fused_horizontal: weights packed for "
+                         f"{packed['hwio']}, called with {tuple(w.shape)}")
     sh, sw = stride
     ph, pw = pad
     oh = (h + 2 * ph - kh) // sh + 1
     ow = (wd + 2 * pw - kw) // sw + 1
+    m = n * oh * ow
     out = torch.empty((n, oh, ow, oc), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    plan = horizontal_plan(m, oc, kh * kw * ic)
+    np_, kp = packed["w"].shape
+    vec = (ic % 16 == 0 and x.data_ptr() % 16 == 0
+           and all(s % 16 == 0 for s in x.stride()[:3]))
+    scratch = None
+    if plan["split"] > 1:   # partial sums, then one counter per tile
+        gx, gy, _ = plan["grid"]
+        scratch = torch.zeros(m * np_ + gx * gy, dtype=torch.int32,
+                              device=dev)
     dims = np.array([n, h, wd, ic, *x.stride()[:3], kh, kw, sh, sw, ph, pw,
-                     oh, ow, oc], np.int32)
-    ptrs = np.array([x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                     shift_vec.data_ptr(), relu_vec.data_ptr(),
-                     out.data_ptr()], np.int64)
+                     oh, ow, oc, kp, np_, plan["split"], plan["bm"],
+                     int(vec)], np.int32)
+    ptrs = np.array([x.data_ptr(), packed["w"].data_ptr(),
+                     packed["b"].data_ptr(), packed["shift"].data_ptr(),
+                     packed["relu"].data_ptr(), out.data_ptr(),
+                     0 if scratch is None else scratch.data_ptr()], np.int64)
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.repro_fused_horizontal(
@@ -529,22 +591,26 @@ def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad):
     return out
 
 
-def fused_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad):
+def fused_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad,
+                     packed=None):
     """Sibling convs over OC-stacked weights w (KH,KW,IC,ΣOC) int8 with bias
-    b and per-channel shift/ReLU vectors (ΣOC,) int32."""
+    b and per-channel shift/ReLU vectors (ΣOC,) int32.  ``packed`` is
+    ``pack_horizontal`` of the same operands, made once by the caller; the
+    kernel packs them itself without it, the plain version ignores it."""
     if x.device.type == "cpu":
         PLAIN_CALLS["fused_horizontal"] += 1
         return fused_horizontal_plain(x, w, b, shift_vec, relu_vec,
                                       stride=stride, pad=pad)
     return _launch_horizontal(x, w, b, shift_vec, relu_vec, stride=stride,
-                              pad=pad)
+                              pad=pad, packed=packed)
 
 
 # ------------------------------------------------------------ executor hook
 def prepare_launch(launch, qm, device) -> dict:
     """Device tensors one launch needs, built once: per-stage weights and
     biases of a chain, or the OC-stacked weights, bias, shift and ReLU
-    vectors of a horizontal launch."""
+    vectors of a horizontal launch with their kernel layout
+    (``pack_horizontal``, under "packed")."""
     dev = torch.device(device)
     if launch.kind == "horizontal":
         w = np.concatenate([qm.weights[m] for m, *_ in launch.members], -1)
@@ -553,10 +619,13 @@ def prepare_launch(launch, qm, device) -> dict:
                                 for _, oc, s, _ in launch.members])
         relu = np.concatenate([np.full(oc, int(r), np.int32)
                                for _, oc, _, r in launch.members])
-        return {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
-                for k, v in (("w", w.astype(np.int8)),
-                             ("b", b.astype(np.int32)),
-                             ("shift", shift), ("relu", relu))}
+        out = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+               for k, v in (("w", w.astype(np.int8)),
+                            ("b", b.astype(np.int32)),
+                            ("shift", shift), ("relu", relu))}
+        out["packed"] = pack_horizontal(out["w"], out["b"], out["shift"],
+                                        out["relu"])
+        return out
     weights, biases = [], []
     for st in launch.stages:
         if st[0] == "conv":
@@ -582,7 +651,8 @@ def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
         y = fused_horizontal(x, prepared["w"], prepared["b"],
                              prepared["shift"], prepared["relu"],
                              stride=tuple(launch.stride),
-                             pad=tuple(launch.pad))
+                             pad=tuple(launch.pad),
+                             packed=prepared.get("packed"))
         outs, off = {}, 0
         for m, oc_m, _, _ in launch.members:
             outs[m] = y[..., off:off + oc_m]

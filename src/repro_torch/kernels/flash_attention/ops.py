@@ -9,7 +9,8 @@ The output has q's shape and dtype.
 
 On a CUDA tensor the wrapper launches the kernel of
 ``csrc/flash_attention.cu`` (fp32 products and statistics, q scaled in the
-input dtype as the TPU kernel does) or raises; on a CPU tensor it takes the
+input dtype as the TPU kernel does; ``tile_plan`` names the kernel and its
+tile) or raises; on a CPU tensor it takes the
 plain version ``attention_ref`` (the unfused oracle: the S x S fp32 score
 matrix materialised).  ``LAUNCHES`` counts kernel launches and
 ``PLAIN_CALLS`` the CPU branch.  ``attention_fp32`` is the kernel's own
@@ -34,6 +35,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # bf16/fp16 kernel output against ``attention_fp32``: two unit roundoffs
 # of the output dtype (2^-8 and 2^-11), relative to each row's largest value
 OUT_REL_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+# query rows and keys of one block's tile: the tensor-core kernel (bf16 and
+# fp16 at d 64 and 128, wgmma fed by TMA) and the CUDA-core one
+TC_TILE = (128, 128)
+FP32_TILE = (64, 64)
 
 LAUNCHES = {"flash_attention": 0}
 PLAIN_CALLS = {"flash_attention": 0}
@@ -134,6 +140,46 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)   # a fresh buffer
 
 
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, S, heads, D) as the tensor-core kernel's TMA maps read it:
+    aligned, with strides that nest (head inside key inside batch, no
+    overlap); otherwise a contiguous copy."""
+    t = _aligned(t)
+    b, s, h, d = t.shape
+    sb, ss, sh, _ = t.stride()
+    if (sh >= d or h == 1) and (ss >= h * sh or s == 1) and (
+            sb >= s * ss or b == 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def tile_plan(b: int, sq: int, sk: int, h: int, kv: int, d: int, dtype,
+              q_offset: int = 0, causal: bool = True) -> dict:
+    """The work the kernel does for one call: which kernel, its tile (query
+    rows ``bm``, keys ``bn``), its work items (row tiles x batch·kv heads;
+    the CUDA-core kernel's grid, the tensor-core kernel's persistent blocks
+    walk them in order), and for each row tile, heaviest first, its first
+    row and the number of kv tiles it walks.  Row r of kv head j is
+    position r // g of query head j * g + r % g; rows past Sq * g are
+    computed and never stored."""
+    tc = dtype in (torch.bfloat16, torch.float16) and d in (64, 128)
+    bm, bn = TC_TILE if tc else FP32_TILE
+    g = h // kv
+    rows = sq * g
+    n_rt = -(-rows // bm)
+    n_kt = -(-sk // bn)
+    tiles = []
+    for i in range(n_rt):
+        r0 = (n_rt - 1 - i) * bm
+        last = n_kt
+        if causal:
+            qmax = (min(r0 + bm, rows) - 1) // g + q_offset
+            last = min(n_kt, qmax // bn + 1)
+        tiles.append((r0, last))
+    return {"kernel": "wgmma" if tc else "cuda_core", "bm": bm, "bn": bn,
+            "g": g, "rows": rows, "items": (n_rt, b * kv), "tiles": tiles}
+
+
 def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True):
     """q (B,Sq,H,D); k/v (B,Sk,KV,D), H % KV == 0.  Returns (B,Sq,H,D)."""
     _check(q, k, v)
@@ -157,13 +203,17 @@ def _launch(q, k, v, q_offset: int, causal: bool):
                          f"not {d}")
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    plan = tile_plan(b, sq, sk, h, kv, d, q.dtype, q_offset, causal)
+    q = _aligned(q)
+    k, v = ((_tma_ready(k), _tma_ready(v)) if plan["kernel"] == "wgmma"
+            else (_aligned(k), _aligned(v)))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or sk == 0:
         return out.zero_()
     scale = _scale(q.dtype, d)
     dims = np.array([b, sq, sk, h, kv, q_offset, int(causal),
-                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3]],
+                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     plan["bm"], plan["bn"]],
                     np.int64)
     lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -1,14 +1,18 @@
 """The card's side of repro_torch.kernels.conv_fused, checked on the CPU:
 tile plans fit a block's shared memory at 224, the packed descriptors walked
-by a numpy model of the CUDA chain kernel equal the plain version, and the
-wrappers take the plain versions only for CPU tensors."""
+by a numpy model of the CUDA chain kernel equal the plain version, the
+horizontal kernel's packed weights and tile/split plan walked the same way
+equal its plain version, and the wrappers take the plain versions only for
+CPU tensors."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import lower
+from repro_torch.core import int8_ops, lower
 from repro_torch.kernels.conv_fused import ops
-from torch_common import HAND_CHAINS, hand_chain_args, port_model, strategy
+from torch_common import (GOOGLENET_HORIZONTAL, HAND_CHAINS,
+                          RAGGED_HORIZONTAL, hand_chain_args,
+                          horizontal_args, port_model, strategy)
 from torch_common import i8 as _i8
 
 
@@ -232,3 +236,86 @@ def test_chain_shape_checks_refuse_mismatched_operands():
         ops._chain_shapes(*shapes[:3], [], chain, oc)
     with pytest.raises(ValueError, match="oc 8"):
         ops._chain_shapes(*shapes, chain, 8)
+
+
+# ------------------------------------------- the horizontal kernel's layout
+def _im2col(x, kh, kw, stride, pad):
+    """(M, K) int64 rows of an NHWC input, K in (kh, kw, ic) order."""
+    n, h, w, c = x.shape
+    (sh, sw), (ph, pw) = stride, pad
+    oh, ow = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+    xp = np.pad(x.astype(np.int64), ((0, 0), (ph, ph), (pw, pw), (0, 0)))
+    cols = [xp[:, i:i + sh * (oh - 1) + 1:sh, j:j + sw * (ow - 1) + 1:sw]
+            for i in range(kh) for j in range(kw)]
+    return np.concatenate(cols, -1).reshape(n * oh * ow, kh * kw * c)
+
+
+def _emulate_horizontal_kernel(x, packed, oc, stride, pad):
+    """What ``horizontal_mma_kernel`` computes from the packed operands
+    under the launcher's plan: each block (row tile, channel tile, K slice)
+    adds its partial product into the tile, each output element is summed
+    over its K slices exactly once, and the epilogue applies bias, shift,
+    ReLU and saturation."""
+    kh, kw = packed["hwio"][:2]
+    wp = packed["w"].numpy().astype(np.int64)
+    np_, kp = wp.shape
+    a = _im2col(x, kh, kw, stride, pad)
+    m, k = a.shape
+    a = np.pad(a, ((0, 0), (0, kp - k)))
+    plan = ops.horizontal_plan(m, oc, k)
+    bm, split, steps = plan["bm"], plan["split"], plan["steps"]
+    assert steps * ops.HBK == kp and steps % split == 0
+    gx, gy, gz = plan["grid"]
+    assert (gx, gy, gz) == (-(-m // bm), np_ // ops.HBN, split)
+    acc = np.zeros((gx * bm, np_), np.int64)
+    hits = np.zeros((gx * bm, np_, steps), np.int64)
+    per = steps // split
+    for bx in range(gx):
+        for by in range(gy):
+            for bz in range(gz):
+                r, c = slice(bx * bm, (bx + 1) * bm), slice(
+                    by * ops.HBN, (by + 1) * ops.HBN)
+                ks = slice(bz * per * ops.HBK, (bz + 1) * per * ops.HBK)
+                rows = np.arange(bx * bm, (bx + 1) * bm)
+                a_t = np.where((rows < m)[:, None], a[np.minimum(rows, m - 1)
+                                                      ][:, ks], 0)
+                acc[r, c] += a_t @ wp[c, ks].T
+                hits[r, c, bz * per:(bz + 1) * per] += 1
+    assert (hits == 1).all()            # every (row, channel, K step) once
+    acc = torch.from_numpy(acc[:m].astype(np.int32))
+    y = int8_ops.round_shift(acc + packed["b"], packed["shift"])
+    y = torch.where(packed["relu"] != 0, y.clamp(min=0), y)
+    return int8_ops.sat8(y)[:, :oc]
+
+
+@pytest.mark.parametrize("shape", GOOGLENET_HORIZONTAL + RAGGED_HORIZONTAL)
+def test_horizontal_pack_and_plan_match_plain(shape):
+    """The packed weights (OC-major, K contiguous, zero padding, vectors
+    padded to match) walked tile by tile and K slice by K slice as the
+    launcher plans the kernel equal ``fused_horizontal_plain`` bit for bit,
+    at batch 1 and 2."""
+    rng = np.random.default_rng(sum(shape))
+    for n in (1, 2):
+        x, w, b, sh, rl, stride, pad = horizontal_args(shape, n, rng)
+        tw, tb, tsh, trl = (torch.from_numpy(t) for t in (w, b, sh, rl))
+        packed = ops.pack_horizontal(tw, tb, tsh, trl)
+        kh, kw, ic, oc = w.shape
+        np_, kp = packed["w"].shape
+        assert kp % ops.HBK == 0 and np_ % ops.HBN == 0
+        assert not packed["w"][oc:].any()
+        assert not packed["w"][:, kh * kw * ic:].any()
+        want = ops.fused_horizontal_plain(torch.from_numpy(x), tw, tb, tsh,
+                                          trl, stride=stride, pad=pad)
+        got = _emulate_horizontal_kernel(x, packed, oc, stride, pad)
+        assert torch.equal(got, want.reshape(-1, oc))
+
+
+@pytest.mark.parametrize("shape", GOOGLENET_HORIZONTAL)
+def test_horizontal_plan_fills_the_card(shape):
+    """At batch 1 every GoogLeNet-224 launch gets at least one block per SM
+    (132 on an H100), its K steps split in equal parts."""
+    h, w, ic, oc = shape[:4]
+    plan = ops.horizontal_plan(h * w, oc, ic)
+    assert plan["steps"] % plan["split"] == 0
+    assert np.prod(plan["grid"]) >= ops.N_SM
+    assert plan["grid"][:2] == (-(-h * w // plan["bm"]), -(-oc // ops.HBN))

@@ -10,8 +10,9 @@ import torch
 
 from repro_torch.core import executor, lower, quantize
 from repro_torch.kernels.conv_fused import ops
-from torch_common import (HAND_CHAINS, build_graph, hand_chain_args,
-                          strategy)
+from torch_common import (GOOGLENET_HORIZONTAL, HAND_CHAINS,
+                          RAGGED_HORIZONTAL, build_graph, hand_chain_args,
+                          horizontal_args, strategy)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,6 +38,27 @@ def test_chain_kernel_matches_plain_on_hand_chains(dev, i):
                               tile=tile)
         torch.cuda.synchronize()
         assert torch.equal(got, want), tile
+
+
+@pytest.mark.parametrize("shape", GOOGLENET_HORIZONTAL + RAGGED_HORIZONTAL)
+def test_horizontal_kernel_matches_plain(dev, shape):
+    """Bit equality with the plain version at batch 1 (GoogLeNet's own
+    launches; split-K where the grid is small) and 2, with the weights
+    packed once by the caller and packed by the wrapper."""
+    rng = np.random.default_rng(sum(shape))
+    for n in (1, 2):
+        x, w, b, sh, rl, stride, pad = horizontal_args(shape, n, rng)
+        args = [torch.as_tensor(t, device=dev) for t in (x, w, b, sh, rl)]
+        want = ops.fused_horizontal_plain(*args, stride=stride, pad=pad)
+        packed = ops.pack_horizontal(*args[1:])
+        for pk in (packed, None):
+            ops.reset_counts()
+            got = ops.fused_horizontal(*args, stride=stride, pad=pad,
+                                       packed=pk)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["fused_horizontal"] == 1
+            assert not ops.PLAIN_CALLS["fused_horizontal"]
+            assert torch.equal(got, want), (n, pk is None)
 
 
 @pytest.mark.parametrize("model,img", [("toy", 16), ("googlenet", 64),
@@ -66,6 +88,7 @@ def test_fused_executor_matches_ref_on_card(dev, model, img):
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,off,causal", [
     (2, 100, 100, 6, 2, 64, 0, True),        # ragged tiles, GQA 3:1
     (1, 256, 256, 15, 5, 64, 0, True),       # SmolLM-360M's grouping
+    (2, 200, 333, 15, 5, 64, 0, True),       # same, Sq and Sk ragged
     (2, 128, 384, 32, 8, 128, 256, True),    # Granite's, q_offset tail
     (1, 64, 200, 4, 4, 32, 0, False),        # full attention
     (1, 48, 48, 2, 1, 16, 0, True),

@@ -164,3 +164,41 @@ def test_sdpa_routes_only_causal_windowless_calls_to_flash():
     assert ops.PLAIN_CALLS["flash_attention"] == 1
     plain = tattn.sdpa(q, k, v, impl="xla")
     torch.testing.assert_close(flash, plain, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,off,causal", [
+    (4, 2048, 2048, 32, 8, 0, True),     # Granite-8B prefill, g = 4
+    (1, 200, 333, 15, 5, 0, True),       # SmolLM-360M's g = 3, ragged
+    (2, 129, 257, 8, 8, 0, True),        # MHA, g = 1, ragged
+    (1, 200, 333, 15, 5, 100, True),     # q_offset, g = 3
+    (4, 128, 2048, 32, 8, 1920, True),   # Granite's q_offset tail
+    (1, 100, 300, 6, 2, 0, False),       # non-causal, g = 3
+])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.float16, 64),
+                                     (torch.float32, 128)])
+def test_tile_plan_covers_every_row_once(b, sq, sk, h, kv, off, causal,
+                                         dtype, d):
+    """The launcher's plan for either kernel: every (position, head) row
+    of a kv head lies in exactly one row tile and is stored once, spare
+    rows of the last tile are not, tiles go heaviest first, and each tile
+    walks exactly the kv tiles its rows need (all keys up to its last
+    position under the causal mask, no tile wholly above it)."""
+    plan = ops.tile_plan(b, sq, sk, h, kv, d, dtype, off, causal)
+    tc = dtype != torch.float32
+    assert plan["kernel"] == ("wgmma" if tc else "cuda_core")
+    bm, bn, g = plan["bm"], plan["bn"], plan["g"]
+    assert (bm, bn) == (ops.TC_TILE if tc else ops.FP32_TILE)
+    assert plan["items"] == (len(plan["tiles"]), b * kv)
+    stored = {}
+    for r0, last in plan["tiles"]:
+        rows = [r for r in range(r0, r0 + bm) if r < sq * g]
+        for r in rows:
+            key = (r // g, r % g)               # (position, head in group)
+            stored[key] = stored.get(key, 0) + 1
+        need = (min(sk, (rows[-1] // g) + off + 1) if causal else sk)
+        assert (last - 1) * bn < need <= last * bn
+    assert sorted(stored) == [(p, j) for p in range(sq) for j in range(g)]
+    assert set(stored.values()) == {1}
+    starts = [r0 for r0, _ in plan["tiles"]]
+    assert starts == sorted(starts, reverse=True)

@@ -133,9 +133,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    import numpy as np
     import torch
 
     from repro_torch import configs
+    from repro_torch.core import carry
     from repro_torch.launch import serve
     from repro_torch.models import api
 
@@ -147,6 +149,10 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         api.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "granite-8b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        carry.lm_params_from_reference({"embed": np.zeros((2, 3), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        carry.lm_cache_from_reference({"k": np.zeros((1, 2), np.float32)})
 
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])

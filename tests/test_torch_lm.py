@@ -42,7 +42,8 @@ def _cfgs(arch, **kw):
 
 def _params(jcfg, seed=0):
     jp = japi.init_params(jcfg, jax.random.PRNGKey(seed))
-    return jp, lm_params_from_reference(jax.tree.map(np.asarray, jp))
+    return jp, lm_params_from_reference(jax.tree.map(np.asarray, jp),
+                                        device="cpu")
 
 
 def _np(x):
@@ -185,7 +186,8 @@ def test_init_params_keys_shapes_dtypes_match():
 def test_bf16_weights_carry_across_bit_equal():
     jcfg, _ = _cfgs("granite-8b", dtype="bfloat16")
     jp = japi.init_params(jcfg)
-    tp = lm_params_from_reference(jax.tree.map(np.asarray, jp))
+    tp = lm_params_from_reference(jax.tree.map(np.asarray, jp),
+                                  device="cpu")
     wq = tp["layers"]["wq"]
     assert wq.dtype == torch.bfloat16
     ref = np.asarray(jp["layers"]["wq"]).view(np.uint16)
@@ -215,7 +217,8 @@ def test_decode_steps_match(arch, window):
         got, tcache = tapi.decode_step(tcfg, tp, tcache,
                                        torch.as_tensor(toks[:, t]), t)
         np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
-    carried = lm_cache_from_reference(jax.tree.map(np.asarray, jcache))
+    carried = lm_cache_from_reference(jax.tree.map(np.asarray, jcache),
+                                      device="cpu")
     for k in ("k", "v"):
         np.testing.assert_allclose(tcache[k].numpy(), carried[k].numpy(),
                                    **TOL)

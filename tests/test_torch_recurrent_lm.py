@@ -35,7 +35,8 @@ def _cfgs(arch, **kw):
 
 def _params(jcfg, seed=0):
     jp = japi.init_params(jcfg, jax.random.PRNGKey(seed))
-    return jp, lm_params_from_reference(jax.tree.map(np.asarray, jp))
+    return jp, lm_params_from_reference(jax.tree.map(np.asarray, jp),
+                                        device="cpu")
 
 
 def _scans(cfg) -> int:
@@ -105,7 +106,8 @@ def test_decode_steps_match(arch):
         got, tcache = tapi.decode_step(tcfg, tp, tcache,
                                        torch.as_tensor(toks[:, t]), t)
         np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
-    carried = lm_cache_from_reference(jax.tree.map(np.asarray, jcache))
+    carried = lm_cache_from_reference(jax.tree.map(np.asarray, jcache),
+                                      device="cpu")
     assert carried.keys() == tcache.keys()
     for k in carried:
         np.testing.assert_allclose(tcache[k].numpy(), carried[k].numpy(),
@@ -141,7 +143,8 @@ def test_cache_carried_across_continues_the_reference(arch):
     for t in range(6):
         _, jcache = step(jp, jcache, jnp.asarray(toks[:, t], jnp.int32),
                          jnp.int32(t))
-    tcache = lm_cache_from_reference(jax.tree.map(np.asarray, jcache))
+    tcache = lm_cache_from_reference(jax.tree.map(np.asarray, jcache),
+                                     device="cpu")
     for t in range(6, 12):
         want, jcache = step(jp, jcache, jnp.asarray(toks[:, t], jnp.int32),
                             jnp.int32(t))

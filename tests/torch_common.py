@@ -112,3 +112,30 @@ def hand_chain_args(i, rng):
     oh, ow = ((last[12], last[13]) if last[0] == "conv" else
               (last[9], last[10]) if last[0] == "pool" else (last[5], last[6]))
     return chain, x, weights, biases, sides, oh, ow, oc
+
+
+# Horizontal launches (h, w, ic, oc, kh, kw, stride, pad): GoogLeNet-224's
+# nine inception modules (1x1, stride 1, so M = h*w at batch 1, K = ic and
+# N = oc, the sum of the siblings' channels), then ragged ones: M not a
+# multiple of a tile with N not a multiple of 8 and K not a multiple of 32,
+# a split-K case, IC = 3, and general windows (3x3, stride 2, padded).
+GOOGLENET_HORIZONTAL = [
+    (28, 28, 192, 176, 1, 1, 1, 0), (28, 28, 256, 288, 1, 1, 1, 0),
+    (14, 14, 480, 304, 1, 1, 1, 0), (14, 14, 512, 296, 1, 1, 1, 0),
+    (14, 14, 512, 280, 1, 1, 1, 0), (14, 14, 512, 288, 1, 1, 1, 0),
+    (14, 14, 528, 448, 1, 1, 1, 0), (7, 7, 832, 448, 1, 1, 1, 0),
+    (7, 7, 832, 624, 1, 1, 1, 0)]
+RAGGED_HORIZONTAL = [
+    (5, 7, 48, 37, 1, 1, 1, 0), (7, 7, 832, 40, 1, 1, 1, 0),
+    (9, 11, 3, 20, 3, 3, 2, 1), (9, 11, 32, 24, 3, 3, 2, 1),
+    (13, 13, 24, 70, 3, 3, 2, 1)]
+
+
+def horizontal_args(shape, n, rng):
+    """Random int8 input and OC-stacked weights, int32 bias, shift and ReLU
+    vectors of one horizontal launch, as numpy, with its stride and pad."""
+    h, w, ic, oc, kh, kw, s, p = shape
+    return (i8(rng, (n, h, w, ic)), i8(rng, (kh, kw, ic, oc)),
+            rng.integers(-3000, 3000, oc).astype(np.int32),
+            rng.integers(-1, 12, oc).astype(np.int32),
+            rng.integers(0, 2, oc).astype(np.int32), (s, s), (p, p))
