@@ -17,8 +17,9 @@ Phases (any failure raises and the script exits non-zero):
    at batch 1 (split-K), 2 and 8, and on hand-made ragged launches (M not a
    multiple of the tile, N not a multiple of 8, K not a multiple of 32, a
    split-K case, IC = 3, 3x3 windows at stride 2 with padding).
-   Each kernel is timed with CUDA events at the main path's shapes beside
-   its plain version (and, for the horizontal 1x1 launches, ``torch._int_mm``
+   The chain kernel gets each launch's weights packed once
+   (``prepare_launch``), as the executor passes them.  Each kernel is timed
+   with CUDA events at the main path's shapes beside its plain version (and, for the horizontal 1x1 launches, ``torch._int_mm``
    at the same M, K, N as a yardstick the port never calls).
 3. The slice: GoogLeNet at 224x224x3, 1000 classes, random weights from a
    seed, calibrated with the port's float executor on the card, planned
@@ -43,14 +44,20 @@ Phases (any failure raises and the script exits non-zero):
    and a 2-layer fp32 Granite at full width holding flash
    prefill against plain prefill at 1e-4 and teacher-forced decode against
    prefill at 1e-3.
-6. The chunked linear scan on the card (TF32 off): fp32 against
-   ``chunked_linear_scan`` at 2e-4 of each output row's largest value, bf16
-   against ``scan_fp32`` (the plain version on inputs upcast to fp32) at two
-   bf16 unit roundoffs of it, at xLSTM-1.3B's prefill shape (B=4, S=2048, 4
-   heads, K=V=1024), Zamba2-1.2B's (32 heads, K=64, V=128, q and k
-   broadcast over the heads with stride 0), a ragged S=200 and K != V;
-   timed with CUDA events at both model shapes beside the plain version and
-   the bound (and, at Zamba2's, at both column slab widths).
+6. The chunked linear scan on the card (TF32 off), each dtype's route
+   (bf16: ``scan_intra_kernel`` + ``scan_state_kernel`` on the tensor
+   cores; fp32 and fp16: ``ssm_scan_kernel``) at every slab width it takes:
+   fp32 against ``chunked_linear_scan`` at 2e-4 of each output row's
+   largest value, bf16 and fp16 against ``scan_fp32`` (the plain version on
+   inputs upcast to fp32) at two unit roundoffs of their dtype, bf16 also
+   element by element (at most ``ROUND_SHARE_TOL`` of its elements differ
+   from ``scan_fp32`` rounded to bf16, which a route without the hi/lo
+   splits misses), at
+   xLSTM-1.3B's prefill shape (B=4, S=2048, 4 heads, K=V=1024),
+   Zamba2-1.2B's (32 heads, K=64, V=128, q and k broadcast over the heads
+   with stride 0), a ragged S=200 and K != V; the bf16 route timed with
+   CUDA events at both model shapes (at each slab width too) beside the
+   plain version, the bound and the fp32 route's kernel.
 7. The recurrent LM slices at full width and depth (random bf16 weights
    from seed 0): xLSTM-1.3B (48 layers, 42 scan launches per prefill) and
    Zamba2-1.2B (38 layers, 38 launches).  For each: ``make_prefill_step``
@@ -60,7 +67,8 @@ Phases (any failure raises and the script exits non-zero):
    ``ops.ssm_scan`` here), every launch of a prefill held on the model's
    own inputs against ``scan_fp32`` at two bf16 unit roundoffs, the
    ``serve`` loop (prefill-by-decode of a 4x128 prompt, 32 greedy steps), a
-   profile of one prefill; then the model at full width and a cut depth
+   profile of one prefill whose trace must hold one ``scan_intra_kernel``
+   and one ``scan_state_kernel`` per wrapper launch; then the model at full width and a cut depth
    (xLSTM 8 layers; Zamba2 1 layer and its shared block): in fp32 every
    launch against the plain scan at 2e-4 row-relative, kernel prefill
    against plain prefill at 1e-4 and teacher-forced decode against prefill
@@ -75,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -185,6 +194,32 @@ def sass_counts(path) -> dict:
                 if op in line:
                     counts[fn][op] = counts[fn].get(op, 0) + 1
     return counts
+
+
+# kernels that must run on the tensor cores: library, kernel name, the
+# SASS instruction that shows it
+TENSOR_CORE_KERNELS = [
+    ("conv_fused", "chain_kernel", "IMMA"),
+    ("conv_fused", "horizontal_mma_kernel", "IMMA"),
+    ("flash_attention", "flash_wgmma_kernel", "HGMMA"),
+    ("ssm_scan", "scan_intra_kernel", "HMMA"),
+    ("ssm_scan", "scan_state_kernel", "HMMA")]
+
+
+def check_tensor_cores(sass: dict) -> None:
+    """Every instantiation of a tensor-core kernel holds its MMA
+    instruction, and the chain kernel no __dp4a; fails without cuobjdump."""
+    for lib, kernel, op in TENSOR_CORE_KERNELS:
+        if "cuobjdump" in sass[lib]:
+            raise AssertionError(f"{lib}: cuobjdump not found, the SASS of "
+                                 f"its tensor-core kernels is unchecked")
+        fns = {f: c for f, c in sass[lib].items()
+               if f.startswith(f"_Z{len(kernel)}{kernel}")}
+        if not fns or not all(c.get(op) for c in fns.values()):
+            raise AssertionError(f"{lib}: {kernel} lacks {op}: {fns}")
+        if kernel == "chain_kernel" and any(c.get("IDP.4A")
+                                            for c in fns.values()):
+            raise AssertionError(f"chain_kernel still uses __dp4a: {fns}")
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -316,8 +351,8 @@ def kernel_phase(models, dev) -> dict:
             prep = ops.prepare_launch(launch, qm, dev)
             args, kw = chain_args(launch, g, prep, gen, dev, n=2)
             want = ops.fused_chain_plain(*args, **kw)
-            check_equal(ops.fused_chain(*args, **kw), want,
-                        f"{name} chain {launch.nodes}")
+            check_equal(ops.fused_chain(*args, **kw, packed=prep["packed"]),
+                        want, f"{name} chain {launch.nodes}")
             n_chain += 1
         log(f"fused_chain == plain on {len(seen)} distinct {name}-224 "
             f"chain launches")
@@ -337,7 +372,8 @@ def kernel_phase(models, dev) -> dict:
         oc = kw["oc"]
         for tile in ((3, 5, oc), (1, 1, oc), (5, 3, oc // 2 if oc % 2 == 0
                                                else oc), (7, 9, oc)):
-            check_equal(ops.fused_chain(*args, **kw, tile=tile), want,
+            check_equal(ops.fused_chain(*args, **kw, tile=tile,
+                                        packed=prep["packed"]), want,
                         f"{name} chain {launch.nodes} tile {tile}")
             n_tiles += 1
     log(f"fused_chain == plain on {n_tiles} forced tiles (ragged included)")
@@ -408,9 +444,10 @@ def timing_phase(m, dev) -> dict:
         if launch.kind == "chain":
             args, kw = chain_args(launch, m["g"], prep, gen, dev)
             r = rec["fused_chain"]
-            k_ms = device_ms(lambda: ops.fused_chain(*args, **kw))
+            pk = prep["packed"]            # as the executor passes them
+            k_ms = device_ms(lambda: ops.fused_chain(*args, **kw, packed=pk))
             p_ms = device_ms(lambda: ops.fused_chain_plain(*args, **kw))
-            err = (ops.fused_chain(*args, **kw).to(torch.int32)
+            err = (ops.fused_chain(*args, **kw, packed=pk).to(torch.int32)
                    - ops.fused_chain_plain(*args, **kw).to(torch.int32))
             nbytes, macs = chain_work(launch, args, kw)
         else:
@@ -458,46 +495,71 @@ def timing_phase(m, dev) -> dict:
 
 # ----------------------------------------------------------------- phase 3
 def profile_device(fn, n: int, trace_name: str) -> dict:
-    """Device busy share and kernel time by name over ``n`` calls of
-    ``fn``, from a ``torch.profiler`` trace (saved in the output directory):
-    busy = union of kernel and copy intervals over the span from the first
-    device event to the last."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device busy share, kernel time by name and device launches by
+    kernel over ``n`` calls of ``fn``, from a ``torch.profiler`` trace
+    (saved in the output directory): busy = union of kernel and copy
+    intervals over the span from the first device event to the last; the
+    launches count the trace's kernel events by the kernel's name without
+    its template arguments.  One more call of ``fn`` before them is the
+    profiler's warm-up step, traced and dropped: without it the first
+    kernels of the traced calls can be missing from the trace.  The
+    wrappers' launch counts are set to 0 after it, so on return they hold
+    the traced calls' launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    path = os.path.join(OUT, trace_name)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        reset_all_counts()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    path = os.path.join(OUT, trace_name)
-    prof.export_chrome_trace(path)
+        prof.step()
     with open(path) as f:
         events = json.load(f)
     events = events.get("traceEvents", events)
-    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                 if e.get("ph") == "X" and e.get("cat") in
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"], e["cat"])
+                 for e in events if e.get("ph") == "X" and e.get("cat") in
                  ("kernel", "gpu_memcpy", "gpu_memset"))
     if not dev:
         return {"device_busy_share": "not measured"}
     busy, end = 0.0, dev[0][0]
     by_name: dict = {}
-    for t0, t1, name in dev:
+    launches: dict = {}
+    for t0, t1, name, cat in dev:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
         key = name.split("(")[0][:60]
         by_name[key] = by_name.get(key, 0.0) + (t1 - t0) / 1e3 / n
+        if cat == "kernel":
+            base = kernel_name(name)
+            launches[base] = launches.get(base, 0) + 1
     span = dev[-1][1] - dev[0][0]
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return {"device_busy_share": busy / span,
             "device_span_ms_per_call": span / 1e3 / n,
             "device_events_per_call": len(dev) / n,
-            "device_ms_per_call_by_kernel": top}
+            "device_ms_per_call_by_kernel": top,
+            "device_launches_by_kernel": launches}
+
+
+def kernel_name(event: str) -> str:
+    """A trace event's kernel name without return type, namespace,
+    template arguments or parameters: ``void scan_state_kernel<2, 256,
+    true>(...)`` -> ``scan_state_kernel``."""
+    head = event.split("(")[0].split("<")[0].strip()
+    return head.split()[-1].split("::")[-1] if head else event
 
 
 def profile_runs(sess, imgs) -> dict:
     """``profile_device`` over ``Session.run`` of each image."""
-    it = iter(imgs)
+    it = itertools.cycle(imgs)
     return profile_device(lambda: sess.run(next(it)), len(imgs),
                           "googlenet_run_trace.json")
 
@@ -839,39 +901,45 @@ def scan_kernel_phase(dev) -> dict:
     errs = {}
     for i, (name, case) in enumerate(SCAN_CASES.items()):
         q, k, v, la = scan_inputs(case, torch.float32, dev, SEED + i)
-        want = chunked_linear_scan(q, k, v, la, chunk=chunk_for(case[1]))[0]
-        got = scan.ssm_scan(q, k, v, la, chunk=chunk_for(case[1]))
-        rel = scan.row_rel_err(got, want)
-        if not (rel <= SCAN_FP32_TOL and torch.isfinite(got).all()):
-            raise AssertionError(f"ssm_scan {name} fp32: max row-relative "
-                                 f"|err| {rel} > {SCAN_FP32_TOL}")
-        errs[f"{name} float32 row-relative"] = rel
-        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        want = scan.scan_fp32(q, k, v, la)
-        tol = scan.OUT_REL_TOL[torch.bfloat16]
-        for vt in scan.SLABS:
-            if scan.library().repro_ssm_scan_smem(case[3], vt) > \
-                    scan.MAX_SMEM:
-                continue
-            got = scan.launch(q, k, v, la, vt)
-            rel = scan.row_rel_err(got, want)
-            if not (rel <= tol and torch.isfinite(got).all()):
-                raise AssertionError(f"ssm_scan {name} bf16 slab {vt}: max "
-                                     f"row-relative |err| {rel} > {tol}")
-            errs[f"{name} bfloat16 slab {vt}"] = float(
-                (got.float() - want).abs().max())
-            errs[f"{name} bfloat16 slab {vt} row-relative"] = rel
-        del q, k, v, la, got, want
-    log("ssm_scan == plain on the card (fp32 row-relative err vs "
-        "chunked_linear_scan; bf16 max |err| and row-relative err vs "
-        "scan_fp32, at each slab width that fits): " + json.dumps(errs))
+        want32 = chunked_linear_scan(q, k, v, la, chunk=chunk_for(case[1]))[0]
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            qt, kt, vt_ = (t.to(dtype) for t in (q, k, v))
+            want = want32 if dtype == torch.float32 else scan.scan_fp32(
+                qt, kt, vt_, la)
+            tol = scan.OUT_REL_TOL.get(dtype, SCAN_FP32_TOL)
+            for vt in scan.slabs(dtype, case[3]):
+                got = scan.launch(qt, kt, vt_, la, vt)
+                rel = scan.row_rel_err(got, want)
+                if not (rel <= tol and torch.isfinite(got).all()):
+                    raise AssertionError(
+                        f"ssm_scan {name} {dtype} ({scan.ROUTES[dtype]}) "
+                        f"slab {vt}: max row-relative |err| {rel} > {tol}")
+                key = f"{name} {str(dtype)[6:]} slab {vt}"
+                errs[key] = float((got.float() - want.float()).abs().max())
+                errs[f"{key} row-relative"] = rel
+                if dtype == torch.bfloat16:
+                    share = scan.round_mismatch(got, want)
+                    errs[f"{key} share off bf16(scan_fp32)"] = share
+                    if not share <= scan.ROUND_SHARE_TOL:
+                        raise AssertionError(
+                            f"ssm_scan {name} bf16 slab {vt}: {share} of "
+                            f"the elements differ from scan_fp32 rounded "
+                            f"to bf16 > {scan.ROUND_SHARE_TOL}")
+            del qt, kt, vt_, want, got
+        del q, k, v, la, want32
+    log("ssm_scan == plain on the card at every route and slab width "
+        "(fp32 against chunked_linear_scan, bf16 and fp16 against "
+        "scan_fp32; max |err| and row-relative err; for bf16 the share of "
+        "elements that differ from scan_fp32 rounded to bf16): "
+        + json.dumps(errs))
     return errs
 
 
 def scan_timing_phase(dev) -> dict:
-    """One call at each model's prefill shape (bf16) of the kernel (at the
-    slab width the wrapper chooses, and at Zamba2's at both), its plain
-    version and the bound from the call's shapes."""
+    """One call at each model's prefill shape of the bf16 route (at the slab
+    width the wrapper chooses, and at every width it takes), its plain
+    version and the bound from the call's shapes; the fp32/fp16 route's
+    kernel on the same inputs upcast to fp32 beside it."""
     from repro_torch.kernels.ssm_scan import ops as scan
     from repro_torch.nn.recurrent import chunked_linear_scan
 
@@ -890,15 +958,17 @@ def scan_timing_phase(dev) -> dict:
                "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": max(t_bytes, t_ops), "bound_bytes_ms": t_bytes,
                "bound_ops_ms": t_ops, "flops": flops, "bytes": nbytes,
-               "tflops": flops / ms / 1e9}
-        if case is ZAMBA_SCAN:
-            rec["ms_by_slab"] = {vt: device_ms(
-                lambda: scan.launch(q, k, v, la, vt), reps=5)
-                for vt in scan.SLABS}
+               "tflops": flops / ms / 1e9,
+               "ms_by_slab": {vt: device_ms(
+                   lambda: scan.launch(q, k, v, la, vt), reps=5)
+                   for vt in scan.slabs(torch.bfloat16, dk)}}
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        rec["fp32_route_ms"] = device_ms(lambda: scan.ssm_scan(
+            q32, k32, v32, la), reps=3)
         out[name] = rec
         log(f"ssm_scan at {name}'s prefill shape {case[:5]}, bf16: "
             + json.dumps(rec))
-        del q, k, v, la
+        del q, k, v, la, q32, k32, v32
     return out
 
 
@@ -1014,7 +1084,18 @@ def recurrent_slice_phase(arch: str, dev, card: str) -> dict:
         f"{max(per_launch)}")
     prof_prefill = profile_device(lambda: prefill(params, {"tokens": tokens}),
                                   1, f"{arch}_prefill_trace.json")
-    log(f"{arch} prefill profiled: " + json.dumps(prof_prefill))
+    n_calls = all_counts()[0]["ssm_scan"]
+    device_launches = {kern: prof_prefill.get(
+        "device_launches_by_kernel", {}).get(kern, 0)
+        for kern in scan.ROUTES[torch.bfloat16]}
+    if n_calls != _n_scans(cfg) or any(
+            c != n_calls for c in device_launches.values()):
+        raise AssertionError(f"{arch} profiled prefill: {n_calls} ssm_scan "
+                             f"calls, device launches in the trace "
+                             f"{device_launches}")
+    log(f"{arch} prefill profiled ({n_calls} ssm_scan calls; device "
+        f"launches in the trace {device_launches}): "
+        + json.dumps(prof_prefill))
     del logits
     torch.cuda.empty_cache()
 
@@ -1047,6 +1128,7 @@ def recurrent_slice_phase(arch: str, dev, card: str) -> dict:
             "prefill_by_decode_tokens_per_s": pbd_tps,
             "decode_tokens_per_s": dec_tps, "launches": launches,
             "prefill_profile": prof_prefill,
+            "scan_device_launches": device_launches,
             "launch_err_bf16": max(per_launch), "cut_depth": checks}
 
 
@@ -1159,11 +1241,13 @@ def main() -> int:
         log(f"built {os.path.relpath(path, ROOT)}")
         for line in out.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
-                                       "Function properties")):
+                                       "Compiling entry")):
                 log("  ptxas:", line.strip())
     log(f"built {len(built)} libraries in {time.perf_counter() - t0:.1f} s")
-    for name, (path, _) in built.items():
-        log(f"sass of {name}: " + json.dumps(sass_counts(path)))
+    sass = {name: sass_counts(path) for name, (path, _) in built.items()}
+    for name, counts in sass.items():
+        log(f"sass of {name}: " + json.dumps(counts))
+    check_tensor_cores(sass)
     for mod in _kernel_ops():
         mod.library()
     t_start = time.perf_counter()
@@ -1197,7 +1281,8 @@ def main() -> int:
     for name, replaces, cuda_kernels in (
             ("fused_chain",
              "src/repro/kernels/conv_fused/conv_fused.py:246",
-             ["chain_kernel"]),
+             ["chain_kernel (conv stages on int8 mma.sync, staged weight "
+              "panels)"]),
             ("fused_horizontal",
              "src/repro/kernels/conv_fused/conv_fused.py:333",
              ["horizontal_mma_kernel"])):
@@ -1226,11 +1311,16 @@ def main() -> int:
                      >= flash_t["bound_ops_ms"] else "operations"),
         "library_ms": flash_t["library_ms"]})
     xl = scan_t["xlstm-1.3b"]
+    n_scan = recurrent["xlstm-1.3b"]["launches"]["ssm_scan"]
     kernels.append({
         "name": "ssm_scan", "route": "cuda", "source": SCAN_SOURCE,
-        "kernels": ["ssm_scan_kernel"],
+        "kernels": ["scan_intra_kernel + scan_state_kernel (bf16, mma.sync "
+                    "with hi/lo splits; the main path)",
+                    "ssm_scan_kernel (fp32 and fp16, CUDA cores)"],
+        "device_launches": {arch: recurrent[arch]["scan_device_launches"]
+                            for arch in recurrent},
         "replaces": SCAN_REPLACES,
-        "launches": recurrent["xlstm-1.3b"]["launches"]["ssm_scan"],
+        "launches": n_scan,
         "max_abs_err": scan_errs["xlstm prefill bfloat16 slab 32"],
         "ms": xl["ms"], "plain_ms": xl["plain_ms"],
         "bound_ms": xl["bound_ms"],

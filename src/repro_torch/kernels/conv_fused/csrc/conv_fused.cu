@@ -15,6 +15,28 @@
 // tile.  Image borders are padded virtually: a load outside the input reads
 // the first stage's pad identity, so the launcher never pads in memory.
 //
+// Each conv stage is an implicit GEMM on the int8 tensor cores (mma.sync
+// m16n8k32 s8 x s8 -> s32): M = the stage's output pixels, N = its output
+// channels (the block's OC tile from the last conv on), K = kh * kw * cin.
+// The launcher packs each conv's weights once (ops.pack_chain_weights):
+// OC-major, K contiguous in (kh, kw, ic) order with ic padded to a multiple
+// of 4, K padded to 32 with zeros.  The block stages the rows of its OC
+// tile into shared memory by cp.async, the next conv's panel loading while
+// this stage computes, and reads B fragments with ldmatrix from rows padded
+// to an odd number of 16-byte chunks (no bank conflicts).  A fragments are
+// 4-byte loads from the int8 window itself: a table of each K group's
+// offset in the window (tap row, tap column, input channel) is built once
+// per stage, so an A register is one load at pixel offset + table entry.
+// Windows keep a pixel stride of the channels rounded up to 4 (plus 16
+// bytes where that stride is a multiple of 32 words, which would put the 8
+// pixel rows of a fragment in one bank); the bytes past the channels are
+// never written and meet only zero weights.  conv1's 3-channel input takes
+// the same path with its pixels padded to 4 channels.  A warp takes
+// (16-pixel tile, 8 * NT-channel block) items in turn, NT = 4, 2 or 1 by
+// the stage's channels.  The epilogue, the pool and eltwise stages and the
+// window's pad-identity masking are those of the reference; the input
+// window is loaded in 16- or 4-byte words where channels and strides allow.
+//
 // horizontal_mma_kernel replaces fused_horizontal_pallas (same file, body
 // _horizontal_kernel): sibling convs over OC-stacked weights as one
 // implicit GEMM (M = output pixels, K = KH*KW*IC, N = sum of OC) on the
@@ -26,13 +48,11 @@
 // image read and write about 14 MB (each launch's inputs, weights and output
 // once) and do about 1.6 G int8 MACs, so the card's bound is bytes: about
 // 4 us at 3.35 TB/s, against about 1.6 us of int8 tensor-core work at
-// 1,979 TOP/s.  The 9 horizontal launches alone move about 3.5 MB (1.05
-// us) for 0.29 G MACs (0.3 us): far below a launch's own latency, so that
-// kernel is built for latency (tensor cores, 16-byte copies, no index
-// arithmetic per byte, 132 SMs busy at M = 49).  The chain kernel runs far
-// above the bound (PERF.md): it is issue- and latency-bound, with __dp4a
-// on CUDA cores (four output channels per thread), weights read through
-// L1/L2 rather than staged; tensor cores and TMA for it are later work.
+// 1,979 TOP/s.  Both kernels sit far below a launch's own latency there, so
+// they are built for latency: tensor cores, weights staged in 16-byte
+// copies, no index arithmetic per byte in the inner loops, and (chain) a
+// tile planner that trades per-block work against waves of blocks over the
+// 132 SMs (ops.choose_chain_tile).
 //
 // Numerics are exactly the reference's int8_ops: int32 accumulation,
 // round-half-away-from-zero shifts (a negative shift is a left shift, done
@@ -58,14 +78,14 @@ struct Stage {
   int cnt;      // pool: divisor
   int s_side;   // elt: shift of the side input
   int rows, cols, cin, cout;   // this block's output window and channels
-  int w_oc;     // conv: OC extent of the weight panel
+  int kp;       // conv: packed K (a multiple of 32), the weight row length
   int sliced;   // output channels are the block's OC tile
   int q0, q1, true_h, true_w;  // padded-coordinate offset and true extent
   int fout, foutw;             // window step between neighbouring tiles
   int fill_next;               // pad identity of the next stage
   int out_buf;                 // 0 buffer A, 1 buffer B, 2 the output
   int side_h, side_w, side_sn, side_sh, side_sw;
-  int vec;      // conv: 0 scalar path, else lanes per 4-channel item
+  int ps;       // pixel stride in bytes of this stage's output window
 };
 static_assert(sizeof(Stage) == STG * 4, "stage record size");
 
@@ -73,7 +93,11 @@ struct Header {
   int n_stages, N, H, W, C, x_sn, x_sh, x_sw;
   int in_rows, in_cols, in_c, in_sliced, f_in, fw_in, q_in0, q_in1, fill0;
   int th, tw, toc, n_h, n_w, n_k, OH, OW, OC, buf_b;
-  int unused[5];
+  int in_ps;    // pixel stride in bytes of the input window
+  int w_off;    // shared offset of the even convs' weight panels
+  int w1_off;   // shared offset of the odd convs' weight panels
+  int koff;     // shared offset of the K-group offset table
+  int global_b; // bit i: conv stage i reads its weights from device memory
 };
 static_assert(sizeof(Header) == HDR * 4, "header size");
 
@@ -82,7 +106,7 @@ struct ChainParams {
   Stage st[MAX_STAGES];
   const int8_t* x;
   int8_t* out;
-  const int8_t* w[MAX_STAGES];
+  const int8_t* w[MAX_STAGES];   // packed (rows, kp) weights of each conv
   const int32_t* b[MAX_STAGES];
   const int8_t* side[MAX_STAGES];
 };
@@ -109,6 +133,32 @@ __device__ __forceinline__ int rounded_div(int s, int cnt) {
   return s < 0 ? -q : q;
 }
 
+__device__ __forceinline__ uint32_t hsmem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void hcp16(uint32_t dst, const void* src,
+                                      bool valid) {
+  // src-size 0 fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void hldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void hldsm_x2(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Writes one stage output value: to the output tensor for the last stage
 // (inside (OH, OW) only), else to the next window, masked to the next
 // stage's pad identity outside this stage's true extent.
@@ -131,101 +181,100 @@ __device__ __forceinline__ void put(const ChainParams& p, const Stage& s,
   }
 }
 
-// A conv stage four output channels per thread: each weight load is one
-// word of four output channels.  With the input channels a multiple of four
-// (every conv but the one reading the 3-channel image), a step reads four
-// input channels as one word from shared memory and four weight words,
-// transposes the 4x4 bytes with __byte_perm and does four __dp4a: 16 MACs
-// per 5 loads instead of one MAC per 2 loads.  Otherwise a step reads one
-// input byte and one weight word for 4 MACs.  When the stage has fewer
-// (pixel, 4 channels) items than threads, S = s.vec lanes of one warp share
-// an item, each taking every S-th step over the input channels, and add
-// their partial sums with __shfl_down_sync: S times shorter serial chains of
-// dependent loads, which bound the small late layers.
-__device__ void conv_stage_vec(const ChainParams& p, int i, const Stage& s,
-                               const int8_t* src, int src_cols, int8_t* dst,
-                               int k, int j, int jw, int n) {
+// Output channels a warp item of a conv stage covers, in n8 tiles.
+__host__ __device__ __forceinline__ int conv_nt(int cout) {
+  return cout >= 32 ? 4 : (cout > 8 ? 2 : 1);
+}
+
+// A conv stage as an implicit GEMM on the int8 tensor cores; wsm holds the
+// block's rows of the packed weights (rows of kp + 16 bytes), or with GB
+// the B fragments come from the packed weights in device memory (a panel
+// too large for shared memory); koff holds each K group's byte offset in
+// the source window.
+template <int NT, bool GB>
+__device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
+                               const int8_t* src, int src_cols, int ps_in,
+                               int8_t* dst, const int8_t* wsm,
+                               const int* koff, int k, int j, int jw, int n) {
   const int ch0 = s.sliced ? k * p.h.toc : 0;
-  const int S = s.vec;
-  const int co4 = s.cout / 4;
-  const int items = s.rows * s.cols * co4;
-  const bool cin4 = s.cin % 4 == 0;
-  const int8_t* w = p.w[i];
-  // every thread runs the same rounds, so each shuffle finds its whole warp
-  for (int base = 0; base < items * S; base += THREADS) {
-    const int t = base + threadIdx.x;
-    const int it = t / S;
-    const int part = t % S;     // S divides 32: an item's lanes share a warp
-    const bool live = it < items;
-    const int o = (it % co4) * 4;
-    const int rc = it / co4;
-    const int c = rc % s.cols;
-    const int r = rc / s.cols;
-    const int oc = ch0 + o;
-    int acc0 = 0, acc1 = 0, acc2 = 0, acc3 = 0;
-    if (live) {
-      for (int ki = 0; ki < s.kh; ++ki) {
-        for (int kj = 0; kj < s.kw; ++kj) {
-          const int8_t* sp = src + ((r * s.sh + ki * s.dh) * src_cols
-                                    + c * s.sw + kj * s.dw) * s.cin;
-          const int8_t* wk =
-              w + (long long)(ki * s.kw + kj) * s.cin * s.w_oc + oc;
-          if (cin4) {
+  const int M = s.rows * s.cols;
+  const int mt = (M + 15) / 16;
+  const int items = mt * ((s.cout + 8 * NT - 1) / (8 * NT));
+  const int kpr = s.kp + 16, ksteps = s.kp / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t wbase = hsmem(wsm);
+  const int32_t* bias = p.b[i] + ch0;
+  for (int item = warp; item < items; item += THREADS / 32) {
+    const int m0 = (item % mt) * 16, n0 = (item / mt) * 8 * NT;
+    const int8_t* px[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = min(m0 + g + 8 * hh, M - 1);
+      const int r = m / s.cols, c = m - r * s.cols;
+      px[hh] = src + (r * s.sh * src_cols + c * s.sw) * ps_in;
+    }
+    int acc[NT][4];
+#pragma unroll
+    for (int a = 0; a < NT; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][e] = 0;
+    uint32_t baddr = 0;
+    const int8_t* wg = p.w[i] + (long long)(ch0 + n0 + g) * s.kp + 4 * t;
+    if constexpr (GB) {
+    } else if constexpr (NT >= 2)
+      baddr = wbase + (n0 + (lane & 7) + ((lane >> 4) << 3)) * kpr
+              + ((lane >> 3) & 1) * 16;
+    else
+      baddr = wbase + (n0 + (lane & 7)) * kpr + ((lane >> 3) & 1) * 16;
 #pragma unroll 2
-            for (int ic = 4 * part; ic < s.cin; ic += 4 * S) {
-              const int a = *reinterpret_cast<const int*>(sp + ic);
-              const int8_t* wr = wk + (long long)ic * s.w_oc;
-              const int w0 = *reinterpret_cast<const int*>(wr);
-              const int w1 = *reinterpret_cast<const int*>(wr + s.w_oc);
-              const int w2 = *reinterpret_cast<const int*>(wr + 2 * s.w_oc);
-              const int w3 = *reinterpret_cast<const int*>(wr + 3 * s.w_oc);
-              const int lo01 = (int)__byte_perm(w0, w1, 0x5140);
-              const int hi01 = (int)__byte_perm(w0, w1, 0x7362);
-              const int lo23 = (int)__byte_perm(w2, w3, 0x5140);
-              const int hi23 = (int)__byte_perm(w2, w3, 0x7362);
-              acc0 = __dp4a(a, (int)__byte_perm(lo01, lo23, 0x5410), acc0);
-              acc1 = __dp4a(a, (int)__byte_perm(lo01, lo23, 0x7632), acc1);
-              acc2 = __dp4a(a, (int)__byte_perm(hi01, hi23, 0x5410), acc2);
-              acc3 = __dp4a(a, (int)__byte_perm(hi01, hi23, 0x7632), acc3);
-            }
-          } else {
-            for (int ic = part; ic < s.cin; ic += S) {
-              const int a = sp[ic];
-              const int wv = *reinterpret_cast<const int*>(
-                  wk + (long long)ic * s.w_oc);
-              acc0 += a * ((wv << 24) >> 24);   // sign-extended bytes 0..3
-              acc1 += a * ((wv << 16) >> 24);
-              acc2 += a * ((wv << 8) >> 24);
-              acc3 += a * (wv >> 24);
-            }
-          }
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const int o0 = koff[8 * ks + t], o1 = koff[8 * ks + 4 + t];
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(px[0] + o0);
+      a[1] = *reinterpret_cast<const uint32_t*>(px[1] + o0);
+      a[2] = *reinterpret_cast<const uint32_t*>(px[0] + o1);
+      a[3] = *reinterpret_cast<const uint32_t*>(px[1] + o1);
+      if constexpr (GB) {
+#pragma unroll
+        for (int a2 = 0; a2 < NT; ++a2) {
+          const int8_t* wr = wg + (long long)8 * a2 * s.kp + 32 * ks;
+          mma_s8(acc[a2], a, __ldg(reinterpret_cast<const uint32_t*>(wr)),
+                 __ldg(reinterpret_cast<const uint32_t*>(wr + 16)));
         }
+      } else if constexpr (NT >= 2) {
+#pragma unroll
+        for (int b2 = 0; b2 < NT / 2; ++b2) {
+          uint32_t bf[4];
+          hldsm_x4(bf, baddr + b2 * 16 * kpr + ks * 32);
+          mma_s8(acc[2 * b2], a, bf[0], bf[1]);
+          mma_s8(acc[2 * b2 + 1], a, bf[2], bf[3]);
+        }
+      } else {
+        uint32_t bf[2];
+        hldsm_x2(bf, baddr + ks * 32);
+        mma_s8(acc[0], a, bf[0], bf[1]);
       }
     }
-    for (int off = S / 2; off > 0; off /= 2) {
-      acc0 += __shfl_down_sync(0xffffffffu, acc0, off, S);
-      acc1 += __shfl_down_sync(0xffffffffu, acc1, off, S);
-      acc2 += __shfl_down_sync(0xffffffffu, acc2, off, S);
-      acc3 += __shfl_down_sync(0xffffffffu, acc3, off, S);
-    }
-    if (!live || part != 0) continue;
-    const int32_t* b = p.b[i] + oc;
-    const int accs[4] = {acc0 + b[0], acc1 + b[1], acc2 + b[2], acc3 + b[3]};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int v = round_shift(accs[q], s.shift);
-      if (s.relu) v = max(v, 0);
-      put(p, s, dst, (r * s.cols + c) * s.cout + o + q, n, j, jw, r, c,
-          oc + q, clamp8(v));
-    }
+    for (int a = 0; a < NT; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + g + 8 * (e >> 1);
+        const int col = n0 + 8 * a + 2 * t + (e & 1);
+        if (m >= M || col >= s.cout) continue;
+        const int r = m / s.cols, c = m - r * s.cols;
+        int v = round_shift(acc[a][e] + bias[col], s.shift);
+        if (s.relu) v = max(v, 0);
+        put(p, s, dst, m * s.ps + col, n, j, jw, r, c, ch0 + col, clamp8(v));
+      }
   }
 }
 
-// Any stage, one output value per thread (a conv runs here only when its
-// output channels are not a multiple of four).
+// A pool or eltwise stage, one output value per thread.
 __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
-                             const int8_t* src, int src_cols, int8_t* dst,
-                             int k, int j, int jw, int n) {
+                             const int8_t* src, int src_cols, int ps_in,
+                             int8_t* dst, int k, int j, int jw, int n) {
   const int ch0 = s.sliced ? k * p.h.toc : 0;
   const int total = s.rows * s.cols * s.cout;
   for (int idx = threadIdx.x; idx < total; idx += THREADS) {
@@ -234,38 +283,23 @@ __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
     const int c = rc % s.cols;
     const int r = rc / s.cols;
     int v;
-    if (s.type == 0) {  // conv
-      const int8_t* wo = p.w[i] + ch0 + o;
-      int acc = p.b[i][ch0 + o];
-      for (int ki = 0; ki < s.kh; ++ki) {
-        for (int kj = 0; kj < s.kw; ++kj) {
-          const int8_t* sp = src + ((r * s.sh + ki * s.dh) * src_cols
-                                    + c * s.sw + kj * s.dw) * s.cin;
-          const int8_t* wk = wo + (long long)(ki * s.kw + kj) * s.cin * s.w_oc;
-          for (int ic = 0; ic < s.cin; ++ic)
-            acc += (int)sp[ic] * (int)wk[(long long)ic * s.w_oc];
-        }
-      }
-      v = round_shift(acc, s.shift);
-      if (s.relu) v = max(v, 0);
-      v = clamp8(v);
-    } else if (s.type == 1) {  // pool: channelwise, cin == cout
-      const int8_t* sp = src + (r * s.sh * src_cols + c * s.sw) * s.cin + o;
+    if (s.type == 1) {  // pool: channelwise, cin == cout
+      const int8_t* sp = src + (r * s.sh * src_cols + c * s.sw) * ps_in + o;
       if (s.pkind == 0) {
         int best = -128;
         for (int ki = 0; ki < s.kh; ++ki)
           for (int kj = 0; kj < s.kw; ++kj)
-            best = max(best, (int)sp[(ki * src_cols + kj) * s.cin]);
+            best = max(best, (int)sp[(ki * src_cols + kj) * ps_in]);
         v = best;
       } else {
         int sum = 0;
         for (int ki = 0; ki < s.kh; ++ki)
           for (int kj = 0; kj < s.kw; ++kj)
-            sum += (int)sp[(ki * src_cols + kj) * s.cin];
+            sum += (int)sp[(ki * src_cols + kj) * ps_in];
         v = clamp8(rounded_div(sum, s.cnt));
       }
     } else {  // elt: the input window has this stage's shape
-      const int a = src[idx];
+      const int a = src[rc * ps_in + o];
       const int sr = j * s.fout + r - s.q0;
       const int sc = jw * s.foutw + c - s.q1;
       int b = 0;
@@ -276,15 +310,37 @@ __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
       if (s.relu) v = max(v, 0);
       v = clamp8(v);
     }
-    put(p, s, dst, idx, n, j, jw, r, c, ch0 + o, v);
+    put(p, s, dst, rc * s.ps + o, n, j, jw, r, c, ch0 + o, v);
+  }
+}
+
+// cp.async of the block's rows of conv stage i's packed weights into wsm.
+__device__ void stage_panel(const ChainParams& p, int i, int k,
+                            int8_t* wsm) {
+  const Stage& s = p.st[i];
+  const int ch0 = s.sliced ? k * p.h.toc : 0;
+  const int nt = conv_nt(s.cout);
+  const int rows = (s.cout + 8 * nt - 1) / (8 * nt) * 8 * nt;
+  const int cpr = s.kp / 16, kpr = s.kp + 16;
+  const int8_t* w = p.w[i] + (long long)ch0 * s.kp;
+  for (int e = threadIdx.x; e < rows * cpr; e += THREADS) {
+    const int r = e / cpr, c = e - r * cpr;
+    hcp16(hsmem(wsm + r * kpr + 16 * c), w + (long long)r * s.kp + 16 * c,
+          true);
   }
 }
 
 __global__ void __launch_bounds__(THREADS)
 chain_kernel(const __grid_constant__ ChainParams p) {
   extern __shared__ __align__(16) int8_t smem[];
-  int8_t* bufs[2] = {smem, smem + p.h.buf_b};
   const Header& h = p.h;
+  // the two window buffers and the two weight panel buffers, picked by
+  // selects rather than indexed arrays (which would live in local memory)
+  int8_t* const buf_a = smem;
+  int8_t* const buf_b = smem + h.buf_b;
+  int8_t* const w_even = smem + h.w_off;
+  int8_t* const w_odd = smem + h.w1_off;
+  int* koff = reinterpret_cast<int*>(smem + h.koff);
   int bid = blockIdx.x;
   const int k = bid % h.n_k;
   bid /= h.n_k;
@@ -293,38 +349,100 @@ chain_kernel(const __grid_constant__ ChainParams p) {
   const int j = bid % h.n_h;
   const int n = bid / h.n_h;
 
-  {  // halo'd input window -> buffer A
-    const int total = h.in_rows * h.in_cols * h.in_c;
+  // the first conv's weights load while the window does
+  int next_conv = 0;
+  while (next_conv < h.n_stages && p.st[next_conv].type != 0) ++next_conv;
+  if (next_conv < h.n_stages && !((h.global_b >> next_conv) & 1))
+    stage_panel(p, next_conv, k, w_even);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  {  // halo'd input window -> buffer A, pixel stride in_ps
     const int ch0 = h.in_sliced ? k * h.toc : 0;
-    const int8_t* xn = p.x + (long long)n * h.x_sn;
-    for (int idx = threadIdx.x; idx < total; idx += THREADS) {
-      const int ch = idx % h.in_c;
-      const int rc = idx / h.in_c;
-      const int c = rc % h.in_cols;
-      const int r = rc / h.in_cols;
+    const int8_t* xn = p.x + (long long)n * h.x_sn + ch0;
+    const int px = h.in_rows * h.in_cols;
+    const uintptr_t al = reinterpret_cast<uintptr_t>(xn) | h.x_sh | h.x_sw
+                         | h.in_c | h.in_ps;
+    // words of 16 or 4 bytes where channels, strides and pointer allow
+    const int wb = (al & 15) == 0 ? 16 : ((al & 3) == 0 ? 4 : 1);
+    const int per = h.in_c / wb;
+    for (int idx = threadIdx.x; idx < px * per; idx += THREADS) {
+      const int pix = idx / per, cw = (idx - pix * per) * wb;
+      const int c = pix % h.in_cols, r = pix / h.in_cols;
       const int xr = j * h.f_in + r - h.q_in0;
       const int xc = jw * h.fw_in + c - h.q_in1;
-      int8_t v = (int8_t)h.fill0;
-      if (xr >= 0 && xr < h.H && xc >= 0 && xc < h.W)
-        v = xn[(long long)xr * h.x_sh + (long long)xc * h.x_sw + ch0 + ch];
-      bufs[0][idx] = v;
+      const bool in = xr >= 0 && xr < h.H && xc >= 0 && xc < h.W;
+      const int8_t* sp = xn + (long long)xr * h.x_sh + (long long)xc * h.x_sw
+                         + cw;
+      int8_t* dp = buf_a + pix * h.in_ps + cw;
+      if (wb == 16) {
+        const uint32_t f = (uint8_t)h.fill0 * 0x01010101u;
+        *reinterpret_cast<uint4*>(dp) =
+            in ? *reinterpret_cast<const uint4*>(sp) : make_uint4(f, f, f, f);
+      } else if (wb == 4) {
+        *reinterpret_cast<uint32_t*>(dp) =
+            in ? *reinterpret_cast<const uint32_t*>(sp)
+               : (uint8_t)h.fill0 * 0x01010101u;
+      } else {
+        *dp = in ? *sp : (int8_t)h.fill0;
+      }
     }
   }
-  __syncthreads();
 
   int src_buf = 0;
   int src_cols = h.in_cols;
+  int ps_in = h.in_ps;
+  int conv_i = 0;
   for (int i = 0; i < h.n_stages; ++i) {
     const Stage& s = p.st[i];
-    const int8_t* src = bufs[src_buf];
-    int8_t* dst = s.out_buf == 2 ? nullptr : bufs[s.out_buf];
-    if (s.type == 0 && s.vec)
-      conv_stage_vec(p, i, s, src, src_cols, dst, k, j, jw, n);
-    else
-      stage_scalar(p, i, s, src, src_cols, dst, k, j, jw, n);
+    const int8_t* src = src_buf ? buf_b : buf_a;
+    int8_t* dst = s.out_buf == 2 ? nullptr : (s.out_buf ? buf_b : buf_a);
+    if (s.type == 0) {
+      // issue the next conv's panel, then wait for this one's
+      next_conv = i + 1;
+      while (next_conv < h.n_stages && p.st[next_conv].type != 0) ++next_conv;
+      if (next_conv < h.n_stages) {
+        if (!((h.global_b >> next_conv) & 1))
+          stage_panel(p, next_conv, k, (conv_i & 1) ? w_even : w_odd);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      // K-group offsets in the window: (tap row, tap column, channel)
+      const int cinp = (s.cin + 3) & ~3;
+      const int kreal = s.kh * s.kw * cinp;
+      for (int e = threadIdx.x; e < s.kp / 4; e += THREADS) {
+        int off = 0;
+        if (4 * e < kreal) {
+          const int tap = 4 * e / cinp, ic = 4 * e - tap * cinp;
+          const int ki = tap / s.kw, kj = tap - ki * s.kw;
+          off = (ki * s.dh * src_cols + kj * s.dw) * ps_in + ic;
+        }
+        koff[e] = off;
+      }
+    }
+    __syncthreads();   // window, panel and table ready
+    if (s.type == 0) {
+      const int8_t* wsm = (conv_i & 1) ? w_odd : w_even;
+      const int sel = conv_nt(s.cout) + 8 * ((h.global_b >> i) & 1);
+      switch (sel) {
+#define CONV_CASE(NT_, GB_)                                                \
+  case NT_ + 8 * (int)GB_:                                                 \
+    conv_stage_mma<NT_, GB_>(p, i, s, src, src_cols, ps_in, dst, wsm, koff, \
+                             k, j, jw, n);                                 \
+    break;
+        CONV_CASE(4, false) CONV_CASE(2, false) CONV_CASE(1, false)
+        CONV_CASE(4, true) CONV_CASE(2, true) CONV_CASE(1, true)
+#undef CONV_CASE
+      }
+      ++conv_i;
+    } else {
+      stage_scalar(p, i, s, src, src_cols, ps_in, dst, k, j, jw, n);
+    }
     __syncthreads();
     src_buf = s.out_buf;
     src_cols = s.cols;
+    ps_in = s.ps;
   }
 }
 
@@ -363,30 +481,9 @@ struct HorizontalParams {
   int32_t* scratch;     // split > 1: (M, Np) partial sums, then counters
 };
 
-__device__ __forceinline__ uint32_t hsmem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void hcp16(uint32_t dst, const void* src,
-                                      bool valid) {
-  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
 // byte offset of 16-byte chunk c of row r in a [rows][HBK] tile
 __device__ __forceinline__ int hswz(int r, int c) {
   return r * HBK + ((c ^ ((r >> 1) & 3)) << 4);
-}
-__device__ __forceinline__ void hldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // MT: 16-row MMA tiles per warp (BM = 32 MT); VEC: 16-byte A copies

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import numpy as np
 import torch
@@ -198,69 +197,108 @@ def _chain_channels(chain, c_in: int, oc_of):
     return ch, last_conv
 
 
-def _vec(cout: int, w_oc: int, toc: int) -> bool:
-    """Whether a conv stage takes the kernel's four-output-channel path
-    (word-aligned output channels, weight rows and OC tile)."""
-    return cout % 4 == 0 and w_oc % 4 == 0 and toc % 4 == 0
+def _ps(ch: int) -> int:
+    """Pixel stride in bytes of a window of ``ch`` channels: rounded up to 4
+    (whole words for the conv stages' A loads), plus 16 where that is a
+    multiple of 32 words, which would put a fragment's 8 pixels in one
+    shared-memory bank."""
+    p = _align(ch, 4)
+    return p + 16 if (p // 4) % 8 == 0 else p
 
 
-def _lanes(items: int, cin: int) -> int:
-    """Lanes sharing one (pixel, 4-channel) item of the four-channel path:
-    the largest power of two up to 32 that keeps all items in one round of
-    ``THREADS`` and gives every lane an input-channel step (4 channels a
-    step when ``cin`` is a multiple of 4, else 1)."""
-    steps = cin // 4 if cin % 4 == 0 else cin
-    lanes = 1
-    while lanes < 32 and items * lanes * 2 <= THREADS and lanes * 2 <= steps:
-        lanes *= 2
-    return lanes
+def _kp(kh: int, kw: int, cin: int) -> int:
+    """Packed K of a conv: kh * kw * (cin rounded up to 4), rounded to 32."""
+    return _align(kh * kw * _align(cin, 4), 32)
+
+
+def conv_nt(cout: int) -> int:
+    """n8 tiles of a warp item of a conv stage (``conv_nt`` in the kernel)."""
+    return 4 if cout >= 32 else (2 if cout > 8 else 1)
+
+
+def _panel(cout: int, kp: int) -> int:
+    """Shared bytes of a block's weight panel: its channels rounded up to a
+    warp item's, rows of kp + 16 bytes (an odd number of 16-byte chunks)."""
+    nt = conv_nt(cout)
+    return _align(cout, 8 * nt) * (kp + 16)
+
+
+def _layout(chain, geom, ch, last_conv, c_in, toc) -> dict:
+    """Shared memory of one block at one tiling: the two window buffers
+    (window k in A when k is even, B when odd; k = 0 is the input, pixel
+    strides ``_ps``), the weight panel buffers (even convs' in the first,
+    odd convs' in the second, so the next conv's panel loads while a stage
+    computes) and the K-group offset table.  A panel that does not fit
+    beside the rest (largest first) is read from device memory instead:
+    bit i of ``global_b`` marks stage i."""
+    m = len(chain)
+    cout = [toc if i >= last_conv else ch[i] for i in range(m)]
+    in_c = toc if last_conv < 0 else c_in
+    ps = [_ps(c) for c in cout]
+    win = [geom["in_rows"] * geom["in_cols"] * _ps(in_c)] + [
+        geom["rows"][i] * geom["cols"][i] * ps[i] for i in range(m - 1)]
+    size_a = _align(max(win[0::2]))
+    size_b = _align(max(win[1::2])) if m > 1 else 0
+    convs, kps, cin = [], {}, in_c
+    for i, st in enumerate(chain):
+        if st[0] == "conv":
+            convs.append(i)
+            kps[i] = _kp(st[2], st[3], cin)
+        cin = cout[i]
+    panels = {i: _panel(cout[i], kps[i]) for i in convs}
+    staged = set(convs)
+
+    def buffers():
+        return [max([panels[i] for i in convs[par::2] if i in staged],
+                    default=0) for par in (0, 1)]
+    table = 4 * max([kp // 4 for kp in kps.values()], default=0)
+    while staged and size_a + size_b + sum(buffers()) + table > SMEM_MAX:
+        staged.remove(max(staged, key=lambda i: panels[i]))
+    w0, w1 = buffers()
+    return {"cout": cout, "in_c": in_c, "ps": ps, "win": win,
+            "size_a": size_a, "size_b": size_b, "kps": kps,
+            "panels": panels, "staged": staged,
+            "global_b": sum(1 << i for i in convs if i not in staged),
+            "w_off": size_a + size_b, "w1_off": size_a + size_b + w0,
+            "koff": size_a + size_b + w0 + w1,
+            "smem": size_a + size_b + w0 + w1 + table}
 
 
 def _plan_cost(chain, geom, ch, last_conv, c_in, toc, n, oc):
     """(smem bytes, estimated time, issued work) of one tiling.
 
-    A block's threads walk each stage's work items ``THREADS`` at a time
-    (an item: one output value, or a pixel's 4 channels on the conv path
-    that ``_vec`` admits, shared by ``_lanes`` lanes).  A thread's serial
-    work is the sum over stages of rounds times the steps per item; issued
-    work counts the warps that have items.  The estimate is the larger of
-    issued work over the card's lanes and one block's serial work times the
-    waves of blocks the SMs hold at once."""
-    m = len(chain)
-    cout = [toc if i >= last_conv else ch[i] for i in range(m)]
-    in_c = toc if last_conv < 0 else c_in
-    win = [geom["in_rows"] * geom["in_cols"] * in_c] + [
-        geom["rows"][i] * geom["cols"][i] * cout[i] for i in range(m - 1)]
-    # window k lives in buffer A when k is even, B when odd (k=0: input)
-    size_a = max(win[0::2])
-    size_b = max(win[1::2]) if len(win) > 1 else 0
-    smem = _align(size_a) + _align(size_b)
-    serial = math.ceil(win[0] / THREADS)
-    issued = win[0]
-    cin = in_c
+    Per block, in rough cycles: the window and staged weight bytes it
+    loads, and for each conv stage its rounds of warp items (16 pixels x
+    8 * ``conv_nt`` channels, eight warps at a time) times the K steps of 32
+    an item takes (dearer where B comes from device memory); pools and
+    eltwise adds a value per thread a round.  The estimate is a block's
+    time times the waves of blocks the SMs hold at once; issued work counts
+    the tensor-core instructions of all blocks."""
+    lay = _layout(chain, geom, ch, last_conv, c_in, toc)
+    cout = lay["cout"]
+    cycles = 500 + lay["win"][0] / 64
+    issued = 0
     for i, st in enumerate(chain):
-        items = geom["rows"][i] * geom["cols"][i] * cout[i]
-        if st[0] == "conv" and _vec(cout[i], ch[i], toc):
-            items //= 4
-            lanes = _lanes(items, cin)
-            steps = cin // 4 if cin % 4 == 0 else cin
-            per = st[2] * st[3] * math.ceil(steps / lanes)
-            items *= lanes
-        elif st[0] == "conv":
-            per = st[2] * st[3] * cin
+        rows, cols = geom["rows"][i], geom["cols"][i]
+        if st[0] == "conv":
+            nt = conv_nt(cout[i])
+            items = -(-rows * cols // 16) * -(-cout[i] // (8 * nt))
+            steps = lay["kps"][i] // 32
+            per = 6 + 2 * nt
+            if i in lay["staged"]:
+                cycles += lay["panels"][i] / 32
+            else:
+                per += 8 * nt
+            cycles += 100 + -(-items // (THREADS // 32)) * steps * per
+            issued += items * steps * nt
         elif st[0] == "pool":
-            per = st[3] * st[4]
+            cycles += -(-rows * cols * cout[i] // THREADS) * st[3] * st[4] * 4
         else:
-            per = 2
-        serial += math.ceil(items / THREADS) * per
-        issued += math.ceil(items / 32) * 32 * per
-        cin = cout[i]
+            cycles += -(-rows * cols * cout[i] // THREADS) * 8
     blocks = n * geom["n_h"] * geom["n_w"] * (oc // toc)
-    occ = max(1, min(2048 // THREADS, SMEM_MAX // (smem + 1024)))
-    issued *= blocks
-    est = max(issued / (N_SM * 128),
-              serial * 8 * math.ceil(blocks / (N_SM * occ)))
-    return smem, est, issued
+    occ = max(1, min(4, SMEM_MAX // (lay["smem"] + 1024)))
+    est = cycles * -(-blocks // (N_SM * occ))
+    return lay["smem"], est, issued * blocks
 
 
 def _ladder(n: int) -> list[int]:
@@ -271,13 +309,16 @@ def _ladder(n: int) -> list[int]:
 @functools.lru_cache(maxsize=None)
 def choose_chain_tile(chain, oh: int, ow: int, oc: int, c_in: int, n: int,
                       oc_list: tuple) -> tuple[int, int, int]:
-    """(th, tw, toc) for the card: the tiling whose buffers fit in a block's
-    shared memory and whose estimated time (per-block work times waves of
-    blocks over the SMs) is least.  The output does not depend on the
-    choice: the padded-coordinate masking makes every tile exact."""
+    """(th, tw, toc) for the card: among the tilings whose buffers fit in a
+    block's shared memory and that give every SM a block (or as many blocks
+    as the output allows), the one whose estimated time (per-block work
+    times waves of blocks over the SMs) is least.  The output does not
+    depend on the choice: the padded-coordinate masking makes every tile
+    exact."""
     ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
     tocs = [t for t in (oc, oc // 2, oc // 4, oc // 8, 64, 32, 16, 8)
             if t >= 1 and oc % t == 0]
+    fill = min(N_SM, n * oh * ow * (oc // min(tocs)))
     best = None
     for th in _ladder(oh):
         for tw in _ladder(ow):
@@ -287,7 +328,8 @@ def choose_chain_tile(chain, oh: int, ow: int, oc: int, c_in: int, n: int,
                                               c_in, toc, n, oc)
                 if smem > SMEM_MAX:
                     continue
-                key = (est, total, -th * tw)
+                blocks = n * geom["n_h"] * geom["n_w"] * (oc // toc)
+                key = (blocks < fill, est, total, -th * tw)
                 if best is None or key < best[0]:
                     best = (key, (th, tw, toc))
     if best is None:
@@ -309,12 +351,8 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
                          f"{MAX_STAGES}")
     geom = chain_geometry(chain, th, oh, ow, tw)
     ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
-    smem, _, _ = _plan_cost(chain, geom, ch, last_conv, c_in, toc, 1, oc)
-    cout = [toc if i >= last_conv else ch[i] for i in range(m)]
-    in_c = toc if last_conv < 0 else c_in
-    win_a = geom["in_rows"] * geom["in_cols"] * in_c
-    win_a = max([win_a] + [geom["rows"][i] * geom["cols"][i] * cout[i]
-                           for i in range(1, m - 1, 2)])
+    lay = _layout(chain, geom, ch, last_conv, c_in, toc)
+    cout, in_c = lay["cout"], lay["in_c"]
     d = np.zeros(HDR + STG * m, np.int32)
     d[0] = m
     d[4] = c_in
@@ -324,7 +362,8 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
                 geom["q_in"][1], geom["fill0"])
     d[17:23] = (th, tw, toc, geom["n_h"], geom["n_w"], oc // toc)
     d[23:26] = (oh, ow, oc)
-    d[26] = _align(win_a)
+    d[26:32] = (lay["size_a"], _ps(in_c), lay["w_off"], lay["w1_off"],
+                lay["koff"], lay["global_b"])
     cin = in_c
     for i, st in enumerate(chain):
         s = d[HDR + STG * i:HDR + STG * (i + 1)]
@@ -333,10 +372,7 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
         if st[0] == "conv":
             s[1:7] = (st[2], st[3], sh, sw, st[8], st[9])
             s[7], s[8] = st[10], int(st[11])
-            s[16] = oc_list[i]
-            if _vec(cout[i], oc_list[i], toc):
-                s[31] = _lanes(geom["rows"][i] * geom["cols"][i]
-                               * cout[i] // 4, cin)
+            s[16] = lay["kps"][i]
         elif st[0] == "pool":
             s[1:7] = (ekh, ekw, sh, sw, 1, 1)
             s[9], s[10] = _PKIND[st[2]], st[11]
@@ -350,9 +386,27 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
         s[22:24] = (geom["fout"][i], geom["foutw"][i])
         s[24] = _fill_of(chain[i + 1]) if i + 1 < m else 0
         s[25] = 2 if i == m - 1 else (1 if i % 2 == 0 else 0)
+        s[31] = lay["ps"][i] if i < m - 1 else 0
         cin = cout[i]
     d.setflags(write=False)
-    return d, smem
+    return d, lay["smem"]
+
+
+def pack_chain_weights(w) -> torch.Tensor:
+    """A chain conv's HWIO weights ``w`` (KH, KW, IC, OC) in the kernel's
+    layout: (OC + 32, Kp) int8, OC-major with K = (kh, kw, ic) contiguous,
+    ic padded to a multiple of 4 and K to ``_kp`` with zeros, and 32 zero
+    rows past OC so that a block's panel (its OC tile rounded up to a warp
+    item's channels) never reads past the end."""
+    kh, kw, ic, oc = w.shape
+    icp = _align(ic, 4)
+    k = kh * kw * icp
+    wp = torch.zeros((kh, kw, icp, oc), dtype=torch.int8, device=w.device)
+    wp[:, :, :ic] = w
+    out = torch.zeros((oc + 32, _kp(kh, kw, ic)), dtype=torch.int8,
+                      device=w.device)
+    out[:oc, :k] = wp.reshape(k, oc).t()
+    return out
 
 
 def _check(t: torch.Tensor, dtype, name: str, dev) -> None:
@@ -427,7 +481,8 @@ def _chain_call(chain, oh, ow, oc, tile, x_geom, w_shapes, b_shapes,
     return desc, smem, n * int(desc[20]) * int(desc[21]) * int(desc[22])
 
 
-def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile):
+def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile,
+                  packed=None):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"fused_chain: no kernel for device {dev}")
@@ -438,15 +493,21 @@ def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile):
     for w, b in zip(weights, biases):
         _check(w, torch.int8, "weight", dev)
         _check(b, torch.int32, "bias", dev)
-        if not (w.is_contiguous() and b.is_contiguous()
-                and w.data_ptr() % 4 == 0):
-            raise ValueError("fused_chain: weights and biases must be "
-                             "contiguous, weights 4-byte aligned")
+        if not b.is_contiguous():
+            raise ValueError("fused_chain: biases must be contiguous")
     for sd in sides:
         _check(sd, torch.int8, "side", dev)
         if sd.stride(-1) != 1:
             raise ValueError("fused_chain: sides must have unit channel "
                              "stride")
+    if packed is None:
+        packed = tuple(pack_chain_weights(w) for w in weights)
+    elif len(packed) != len(weights) or any(
+            p.shape != (w.shape[3] + 32, _kp(*w.shape[:3])) or p.device != dev
+            or not p.is_contiguous() or p.data_ptr() % 16
+            for p, w in zip(packed, weights)):
+        raise ValueError("fused_chain: packed weights do not match the "
+                         "chain's weights (pack_chain_weights)")
     desc, smem, n_blocks = _chain_call(
         chain, oh, ow, oc, None if tile is None else tuple(tile),
         (tuple(x.shape), x.stride()), tuple(tuple(w.shape) for w in weights),
@@ -456,7 +517,7 @@ def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile):
     ptrs = np.zeros(2 + 3 * MAX_STAGES, np.int64)
     ptrs[0], ptrs[1] = x.data_ptr(), out.data_ptr()
     conv_pos = [i for i, st in enumerate(chain) if st[0] == "conv"]
-    for i, w, b in zip(conv_pos, weights, biases):
+    for i, w, b in zip(conv_pos, packed, biases):
         ptrs[2 + 3 * i], ptrs[3 + 3 * i] = w.data_ptr(), b.data_ptr()
     elt_pos = [i for i, st in enumerate(chain) if st[0] == "elt"]
     for i, sd in zip(elt_pos, sides):
@@ -475,16 +536,19 @@ def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile):
 
 
 def fused_chain(x, weights, biases, sides, *, chain, oh, ow, oc,
-                tile=None):
+                tile=None, packed=None):
     """Run a lowered chain.  x (N,H,W,C) int8 unpadded; one (KH,KW,IC,OC)
     int8 weight and (OC,) int32 bias per conv stage; one int8 side per elt
-    stage.  ``tile`` (th, tw, toc) overrides the card's tile choice."""
+    stage.  ``tile`` (th, tw, toc) overrides the card's tile choice;
+    ``packed`` is ``pack_chain_weights`` of each weight, made once by the
+    caller (the kernel packs them itself without it, the plain version
+    ignores it)."""
     if x.device.type == "cpu":
         PLAIN_CALLS["fused_chain"] += 1
         return fused_chain_plain(x, weights, biases, sides, chain=chain,
                                  oh=oh, ow=ow, oc=oc)
     return _launch_chain(x, weights, biases, sides, chain=chain, oh=oh,
-                         ow=ow, oc=oc, tile=tile)
+                         ow=ow, oc=oc, tile=tile, packed=packed)
 
 
 # ------------------------------------------------------- horizontal kernel
@@ -608,7 +672,8 @@ def fused_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad,
 # ------------------------------------------------------------ executor hook
 def prepare_launch(launch, qm, device) -> dict:
     """Device tensors one launch needs, built once: per-stage weights and
-    biases of a chain, or the OC-stacked weights, bias, shift and ReLU
+    biases of a chain with their kernel layout (``pack_chain_weights``,
+    under "packed"), or the OC-stacked weights, bias, shift and ReLU
     vectors of a horizontal launch with their kernel layout
     (``pack_horizontal``, under "packed")."""
     dev = torch.device(device)
@@ -636,7 +701,8 @@ def prepare_launch(launch, qm, device) -> dict:
                                            device=dev))
             biases.append(torch.as_tensor(
                 np.asarray(qm.biases[st[1]], np.int32), device=dev))
-    return {"weights": tuple(weights), "biases": tuple(biases)}
+    return {"weights": tuple(weights), "biases": tuple(biases),
+            "packed": tuple(pack_chain_weights(w) for w in weights)}
 
 
 def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
@@ -665,5 +731,6 @@ def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
     oh, ow = launch.out_hw
     oc = int(weights[-1].shape[-1]) if weights else int(x.shape[-1])
     y = fused_chain(x, weights, prepared["biases"], sides,
-                    chain=launch.stages, oh=oh, ow=ow, oc=oc)
+                    chain=launch.stages, oh=oh, ow=ow, oc=oc,
+                    packed=prepared.get("packed"))
     return {launch.out_name: y}

@@ -1,5 +1,5 @@
 """Launcher, plain versions and launch count of the chunked linear-scan
-kernel.
+kernels.
 
 Port of ``src/repro/kernels/ssm_scan/{ops,ssm_scan,ref}.py``.  ``ssm_scan``
 evaluates the recurrence ``S_t = a_t S_{t-1} + k_t v_t^T``, ``y_t = S_t^T
@@ -7,18 +7,23 @@ q_t`` (``a_t = exp(log_a_t)``, the state S fp32 (K x V) per head) in the JAX
 layout: q, k ``(B, S, H, K)``, v ``(B, S, H, V)``, log_a ``(B, S, H)`` fp32.
 The output y ``(B, S, H, V)`` has v's dtype.
 
-On a CUDA tensor the wrapper launches the kernel of ``csrc/ssm_scan.cu``
-(inputs upcast to fp32, fp32 arithmetic throughout, 64-step sub-chunks with
-a masked ragged tail, one block per (head, column slab of S)) or raises; on
-a CPU tensor it takes the plain version, ``nn.recurrent.chunked_linear_scan``
-(the oracle the model layers call in the reference).  ``LAUNCHES`` counts
-kernel launches and ``PLAIN_CALLS`` the CPU branch.  Beside it:
-``sequential_ref`` (the step-by-step recurrence) and ``scan_fp32`` (the
-plain version on inputs upcast to fp32), against which the card holds the
-bf16 and fp16 kernel at ``OUT_REL_TOL`` (``row_rel_err``).
+On a CUDA tensor the wrapper launches the kernels of ``csrc/ssm_scan.cu`` or
+raises; the route follows the dtype (``ROUTES``).  bf16 goes to the tensor
+cores: ``scan_intra_kernel`` (P = q k^T masked and decayed, once per (batch,
+head, 64-step chunk), as bf16 hi and lo halves in a scratch) then
+``scan_state_kernel`` (the state S^T of a column slab in mma registers
+across the chunks, fp32 operands split into bf16 hi and lo halves).  fp32
+and fp16 go to ``ssm_scan_kernel`` (CUDA cores, fp32).  On a CPU tensor the
+wrapper takes the plain version, ``nn.recurrent.chunked_linear_scan`` (the
+oracle the model layers call in the reference).  ``LAUNCHES`` counts calls
+that launched the kernels (one per call, whatever the route) and
+``PLAIN_CALLS`` the CPU branch.  Beside it: ``sequential_ref`` (the
+step-by-step recurrence) and ``scan_fp32`` (the plain version on inputs
+upcast to fp32), against which the card holds the bf16 and fp16 routes at
+``OUT_REL_TOL`` (``row_rel_err``).
 
 q, k and v may be strided views (Zamba2's q and k are broadcast over the
-heads with stride 0): the kernel reads the (batch, seq, head) strides, and
+heads with stride 0): the kernels read the (batch, seq, head) strides, and
 the wrapper copies only a tensor whose last dimension is not contiguous.
 """
 from __future__ import annotations
@@ -32,14 +37,30 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import row_rel_err  # noqa: F401
 from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
 
-SLABS = (64, 32)               # column slab widths of S the kernel takes
+# the kernels of each dtype's route, and the column slab widths of S each
+# takes (the fp32/fp16 route's slab lives in shared memory, the bf16
+# route's in registers)
+ROUTES = {torch.bfloat16: ("scan_intra_kernel", "scan_state_kernel"),
+          torch.float32: ("ssm_scan_kernel",),
+          torch.float16: ("ssm_scan_kernel",)}
+SLABS = {torch.bfloat16: (128, 32), torch.float32: (64, 32),
+         torch.float16: (64, 32)}
 MAX_SMEM = 232448              # opt-in shared memory per block on Hopper
-DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPES = {torch.float32: 0, torch.float16: 2}   # the fp32/fp16 route's codes
+CHUNK = 64                     # steps per chunk of the bf16 route
+COEF = 2 * CHUNK + 4           # floats of its coefficient record
 
 # bf16/fp16 kernel output against ``scan_fp32``: two unit roundoffs of the
 # output dtype (2^-8 and 2^-11), relative to each (b, t, h) row's largest
 # value; the kernel differs from it by its final rounding and fp32 order
 OUT_REL_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+# bf16 route on bf16 inputs: at most this share of its output elements may
+# differ from ``scan_fp32`` rounded to bf16 (``round_mismatch``).  Its
+# products carry about 16 bits beyond bf16, so only values that close to a
+# rounding boundary differ (about 0.2% in the plain-torch model of the
+# route); bf16 operands without their low halves differ in about a third,
+# yet stay inside ``OUT_REL_TOL``
+ROUND_SHARE_TOL = 2.0 ** -6
 
 LAUNCHES = {"ssm_scan": 0}
 PLAIN_CALLS = {"ssm_scan": 0}
@@ -57,6 +78,16 @@ def _bind(lib) -> None:
     lib.repro_ssm_scan.restype = ci
     lib.repro_ssm_scan_smem.argtypes = [ctypes.c_int64, ci]
     lib.repro_ssm_scan_smem.restype = ctypes.c_int64
+    lib.repro_ssm_scan_bf16.argtypes = [ci, ci] + [vp] * 9
+    lib.repro_ssm_scan_bf16.restype = ci
+    lib.repro_ssm_scan_bf16_smem.argtypes = [ci, ctypes.c_int64]
+    lib.repro_ssm_scan_bf16_smem.restype = ctypes.c_int64
+    lib.repro_ssm_scan_bf16_geometry.argtypes = [ci]
+    lib.repro_ssm_scan_bf16_geometry.restype = ci
+    geometry = tuple(lib.repro_ssm_scan_bf16_geometry(i) for i in (0, 1))
+    if geometry != (CHUNK, COEF):
+        raise RuntimeError(f"ssm_scan library's chunk and coefficient record "
+                           f"{geometry}, the wrapper's {(CHUNK, COEF)}")
 
 
 def library():
@@ -89,6 +120,12 @@ def scan_fp32(q, k, v, log_a):
                                chunk=chunk_for(q.shape[1]))[0]
 
 
+def round_mismatch(got, want) -> float:
+    """Share of the elements of ``got`` that differ from ``want`` (fp32)
+    rounded to ``got``'s dtype."""
+    return float((got != want.to(got.dtype)).float().mean())
+
+
 # ------------------------------------------------------------------ wrapper
 def _check(q, k, v, log_a, chunk: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or log_a.dim() != 3:
@@ -110,29 +147,58 @@ def _check(q, k, v, log_a, chunk: int) -> None:
         raise ValueError(f"seq {s} not divisible by chunk {min(chunk, s)}")
 
 
-def slab_width(b: int, h: int, dk: int, dv: int, n_sm: int) -> int:
-    """Columns of S per block: 64 where its slab fits in shared memory and
-    the grid still has a block for every SM, else 32."""
+def slab_smem(dtype, dk: int, vt: int) -> int:
+    """Shared memory in bytes a block of ``dtype``'s route needs at head dim
+    ``dk`` and slab width ``vt``; -1 where the route does not take them."""
     lib = library()
-    if dv > 32 and lib.repro_ssm_scan_smem(dk, 64) <= MAX_SMEM \
-            and b * h * -(-dv // 64) >= n_sm:
-        return 64
-    return 32
+    if dtype == torch.bfloat16:
+        return lib.repro_ssm_scan_bf16_smem(vt, dk)
+    return lib.repro_ssm_scan_smem(dk, vt) if vt in SLABS[dtype] else -1
+
+
+def slabs(dtype, dk: int) -> tuple:
+    """The slab widths ``dtype``'s route takes at head dim ``dk``."""
+    return tuple(vt for vt in SLABS[dtype]
+                 if 0 < slab_smem(dtype, dk, vt) <= MAX_SMEM)
+
+
+def pick_slab(widths, b: int, h: int, dv: int, n_sm: int,
+              dtype=torch.bfloat16) -> int:
+    """Columns of S per block.  bf16: the widest width no wider than V
+    (the narrowest where none is); fp32/fp16: 64 where the grid still has
+    a block for every SM, else 32."""
+    if dtype != torch.bfloat16:
+        return 64 if 64 in widths and dv > 32 and \
+            b * h * -(-dv // 64) >= n_sm else min(widths)
+    return max((vt for vt in widths if vt <= dv), default=min(widths))
+
+
+def slab_width(b: int, h: int, dk: int, dv: int, n_sm: int,
+               dtype=torch.bfloat16) -> int:
+    """The slab width the wrapper launches ``dtype``'s route with."""
+    widths = slabs(dtype, dk)
+    if not widths:
+        raise ValueError(f"ssm_scan: head dim K={dk} is too large for the "
+                         f"{dtype} route")
+    return pick_slab(widths, b, h, dv, n_sm, dtype)
 
 
 def ssm_scan(q, k, v, log_a, *, chunk: int = 128):
     """q,k (B,S,H,K); v (B,S,H,V); log_a (B,S,H) fp32.  Returns y (B,S,H,V)
     in v's dtype.  ``chunk`` is the plain version's chunk length (S must be
-    a multiple of min(chunk, S)); the kernel's sub-chunks are its own."""
+    a multiple of min(chunk, S)); the kernels' chunks are their own."""
     _check(q, k, v, log_a, chunk)
     if q.device.type == "cpu":
         PLAIN_CALLS["ssm_scan"] += 1
         return chunked_linear_scan(q, k, v, log_a, chunk=chunk)[0]
     if q.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on CUDA or the CPU, not {q.device}")
+    if q.dtype not in ROUTES:
+        raise ValueError(f"ssm_scan takes {list(ROUTES)}, not {q.dtype}")
     b, _, h, dk = q.shape
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return launch(q, k, v, log_a, slab_width(b, h, dk, v.shape[-1], n_sm))
+    return launch(q, k, v, log_a, slab_width(b, h, dk, v.shape[-1], n_sm,
+                                             q.dtype))
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -140,20 +206,27 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _vec(*ts) -> bool:
+    """Whether the bf16 route may copy rows of these tensors in 16 bytes:
+    last dimension and (batch, seq, head) strides multiples of 8 elements,
+    pointers 16-byte aligned."""
+    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
+
+
 def launch(q, k, v, log_a, vt: int):
-    """Launch the kernel with column slabs of ``vt`` columns of S (one of
-    ``SLABS``); ``ssm_scan`` picks the width with ``slab_width``."""
-    if q.dtype not in DTYPES:
-        raise ValueError(f"ssm_scan takes {list(DTYPES)}, not {q.dtype}")
-    if vt not in SLABS:
-        raise ValueError(f"slab width {vt} not in {SLABS}")
+    """Launch ``q.dtype``'s route with column slabs of ``vt`` columns of S
+    (one of ``slabs(q.dtype, K)``); ``ssm_scan`` picks the width with
+    ``slab_width``."""
+    if q.dtype not in ROUTES:
+        raise ValueError(f"ssm_scan takes {list(ROUTES)}, not {q.dtype}")
     b, s, h, dk = q.shape
     dv = v.shape[-1]
-    lib = library()
-    smem = lib.repro_ssm_scan_smem(dk, vt)
-    if smem > MAX_SMEM:
-        raise ValueError(f"ssm_scan: head dim K={dk} needs {smem} bytes of "
-                         f"shared memory at slab {vt} (at most {MAX_SMEM})")
+    smem = slab_smem(q.dtype, dk, vt)
+    if not 0 < smem <= MAX_SMEM:
+        raise ValueError(f"ssm_scan: the {q.dtype} route does not take head "
+                         f"dim K={dk} at slab {vt} ({smem} bytes of shared "
+                         f"memory, at most {MAX_SMEM})")
     if b * h > 65535:
         raise ValueError(f"ssm_scan: {b * h} (batch, head) pairs > 65535")
     out = torch.empty((b, s, h, dv), dtype=v.dtype, device=v.device)
@@ -162,13 +235,24 @@ def launch(q, k, v, log_a, vt: int):
     q, k, v = _rows(q), _rows(k), _rows(v)
     dims = np.array([b, s, h, dk, dv, *q.stride()[:3], *k.stride()[:3],
                      *v.stride()[:3], *log_a.stride()], np.int64)
+    lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.repro_ssm_scan(
-        ctypes.c_int(DTYPES[q.dtype]), ctypes.c_int(vt),
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(log_a.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), dims.ctypes.data_as(ctypes.c_void_p),
-        ctypes.c_void_p(stream))
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, log_a, out)]
+    if q.dtype == torch.bfloat16:
+        n_chunks = -(-s // CHUNK)
+        pbuf = torch.empty((b * h * n_chunks, CHUNK * CHUNK),
+                           dtype=torch.int32, device=q.device)
+        coef = torch.empty((b * h * n_chunks, COEF), dtype=torch.float32,
+                           device=q.device)
+        rc = lib.repro_ssm_scan_bf16(
+            ctypes.c_int(vt), ctypes.c_int(int(_vec(q, k, v))), *ptrs,
+            ctypes.c_void_p(pbuf.data_ptr()),
+            ctypes.c_void_p(coef.data_ptr()),
+            dims.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
+    else:
+        rc = lib.repro_ssm_scan(
+            ctypes.c_int(DTYPES[q.dtype]), ctypes.c_int(vt), *ptrs,
+            dims.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"ssm_scan launch failed: {build.error(lib, rc)}")
     LAUNCHES["ssm_scan"] += 1

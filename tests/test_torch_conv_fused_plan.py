@@ -30,6 +30,12 @@ def _chain_meta(g, launch):
 
 @pytest.mark.parametrize("model", ["googlenet", "resnet50"])
 def test_card_tiles_fit_shared_memory_at_224(model):
+    """Every 224 plan at batch 1 fits a block's shared memory (windows at
+    their pixel strides, two weight panel buffers, the K-group table, laid
+    out in that order on 16-byte boundaries), the planner's cost model
+    counts the same bytes, every launch that can give each of the 132 SMs a
+    block gets one, and every weight panel of GoogLeNet-224 is staged in
+    shared memory."""
     from repro_torch.cnn import build
     g = build(model)
     prog = lower.lower_strategy(g, strategy("repro_torch", g), None)
@@ -45,13 +51,29 @@ def test_card_tiles_fit_shared_memory_at_224(model):
                                     (th, tw, toc))
         assert 0 < smem <= ops.SMEM_MAX
         assert len(desc) == ops.HDR + ops.STG * len(launch.stages)
+        h = dict(zip(_HDR, desc[:len(_HDR)].tolist()))
+        assert 0 < h["buf_b"] <= h["w_off"] <= h["w1_off"] <= h["koff"] \
+            <= smem and all(h[f] % 16 == 0
+                           for f in ("buf_b", "w_off", "w1_off", "koff"))
+        assert model == "resnet50" or h["global_b"] == 0
+        ch, last_conv = ops._chain_channels(launch.stages, c_in,
+                                            lambda i: oc_list[i])
+        geom = ops.chain_geometry(launch.stages, th, oh, ow, tw)
+        assert ops._plan_cost(launch.stages, geom, ch, last_conv, c_in, toc,
+                              1, oc)[0] == smem
+        most = oh * ow * oc // min(t for t in (oc, oc // 2, oc // 4, oc // 8,
+                                               64, 32, 16, 8)
+                                   if t >= 1 and oc % t == 0)
+        assert h["n_h"] * h["n_w"] * h["n_k"] >= min(ops.N_SM, most), \
+            launch.nodes
 
 
 _HDR = ("n_stages N H W C x_sn x_sh x_sw in_rows in_cols in_c in_sliced f_in "
-        "fw_in q_in0 q_in1 fill0 th tw toc n_h n_w n_k OH OW OC buf_b").split()
+        "fw_in q_in0 q_in1 fill0 th tw toc n_h n_w n_k OH OW OC buf_b in_ps "
+        "w_off w1_off koff global_b").split()
 _STG = ("type kh kw sh sw dh dw shift relu pkind cnt s_side rows cols cin "
-        "cout w_oc sliced q0 q1 true_h true_w fout foutw fill_next "
-        "out_buf").split()
+        "cout kp sliced q0 q1 true_h true_w fout foutw fill_next out_buf "
+        "side_h side_w side_sn side_sh side_sw ps").split()
 
 
 def _rshift(v, s):
@@ -61,9 +83,15 @@ def _rshift(v, s):
 
 def _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
     """What ``chain_kernel`` in csrc/conv_fused.cu computes from the packed
-    descriptor: per block, the halo'd window with virtual padding, each
-    stage over its window, masking to the next stage's pad identity, and
-    the final tile written where it lies inside (OH, OW)."""
+    descriptor and the packed weights: per block, the halo'd window with
+    virtual padding stored at its pixel stride (the bytes past the channels
+    hold junk the kernel never writes), each conv stage as the tensor cores
+    see it — A words read at a pixel's offset plus the K-group offset
+    table's entry, B rows of the block's slice of ``pack_chain_weights`` —
+    pools and eltwise adds over the strided window, masking to the next
+    stage's pad identity, and the final tile written where it lies inside
+    (OH, OW)."""
+    junk = np.random.default_rng(99)
     n_img, hh, ww, c_in = x.shape
     conv_at = [i for i, st in enumerate(chain) if st[0] == "conv"]
     oc_list = [0] * len(chain)
@@ -74,9 +102,21 @@ def _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
     h = dict(zip(_HDR, desc[:len(_HDR)].tolist()))
     st = [dict(zip(_STG, desc[ops.HDR + ops.STG * i:][:len(_STG)].tolist()))
           for i in range(len(chain))]
-    wmap = dict(zip(conv_at, zip(w, b)))
+    assert h["buf_b"] % 16 == 0 and h["w_off"] % 16 == 0 \
+        and h["w1_off"] % 16 == 0
+    packed = {i: ops.pack_chain_weights(torch.as_tensor(t)).numpy().astype(
+        np.int64) for i, t in zip(conv_at, w)}
+    bias = dict(zip(conv_at, b))
     smap = dict(zip([i for i, s in enumerate(chain) if s[0] == "elt"], sides))
     out = np.zeros((n_img, oh, ow, oc), np.int64)
+
+    def strided(vals, ps):
+        """A (rows, cols, ch) window stored at pixel stride ps, flat."""
+        r, c, chn = vals.shape
+        flat = junk.integers(-128, 128, (r, c, ps)).astype(np.int64)
+        flat[..., :chn] = vals
+        return flat.reshape(-1)
+
     for n in range(n_img):
         for j in range(h["n_h"]):
             for jw in range(h["n_w"]):
@@ -90,25 +130,42 @@ def _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
                         cols, 0, ww - 1)][..., ch0:ch0 + h["in_c"]]
                     src = np.where(inside[..., None], src.astype(np.int64),
                                    h["fill0"])
+                    flat, ps_in, src_cols = (strided(src, h["in_ps"]),
+                                             h["in_ps"], h["in_cols"])
                     for i, s in enumerate(st):
                         c0 = k * h["toc"] if s["sliced"] else 0
                         R, C, CO = s["rows"], s["cols"], s["cout"]
-                        assert src.shape[2] == s["cin"]
-
-                        def win(ki, kj, dh=1, dw=1):
-                            return src[ki * dh:ki * dh + (R - 1) * s["sh"] + 1:
-                                       s["sh"], kj * dw:kj * dw + (C - 1)
-                                       * s["sw"] + 1:s["sw"]]
+                        view = flat.reshape(-1, src_cols, ps_in)
+                        assert view.shape[2] >= s["cin"]
                         if s["type"] == 0:
-                            wt, bt = wmap[i]
-                            v = np.zeros((R, C, CO), np.int64) + bt[c0:c0 + CO]
-                            for ki in range(s["kh"]):
-                                for kj in range(s["kw"]):
-                                    v += win(ki, kj, s["dh"], s["dw"]) @ \
-                                        wt[ki, kj][:, c0:c0 + CO].astype(np.int64)
+                            cinp = -(-s["cin"] // 4) * 4
+                            kreal = s["kh"] * s["kw"] * cinp
+                            koff = np.zeros(s["kp"] // 4, np.int64)
+                            for e in range(kreal // 4):
+                                tap, ic = divmod(4 * e, cinp)
+                                ki, kj = divmod(tap, s["kw"])
+                                koff[e] = ((ki * s["dh"] * src_cols
+                                            + kj * s["dw"]) * ps_in + ic)
+                            m = np.arange(R * C)
+                            px = ((m // C) * s["sh"] * src_cols
+                                  + (m % C) * s["sw"]) * ps_in
+                            a = flat[(px[:, None, None] + koff[None, :, None]
+                                      + np.arange(4)[None, None, :])]
+                            a = a.reshape(R * C, s["kp"])
+                            panel = packed[i][c0:c0 + CO]
+                            assert panel.shape[1] == s["kp"]
+                            v = (a @ panel.T + bias[i][c0:c0 + CO]).reshape(
+                                R, C, CO)
                             v = _rshift(v, s["shift"])
-                        elif s["type"] == 1:
-                            ws = [win(ki, kj) for ki in range(s["kh"])
+                        else:
+                            win = view[..., :s["cin"]]
+
+                            def tap(ki, kj):
+                                return win[ki:ki + (R - 1) * s["sh"] + 1:
+                                           s["sh"], kj:kj + (C - 1)
+                                           * s["sw"] + 1:s["sw"]]
+                        if s["type"] == 1:
+                            ws = [tap(ki, kj) for ki in range(s["kh"])
                                   for kj in range(s["kw"])]
                             if s["pkind"] == 0:
                                 v = np.max(ws, axis=0)
@@ -116,7 +173,7 @@ def _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
                                 t = np.sum(ws, axis=0)
                                 v = np.sign(t) * ((np.abs(t) + s["cnt"] // 2)
                                                   // s["cnt"])
-                        else:
+                        elif s["type"] == 2:
                             side = smap[i][n].astype(np.int64)
                             sr = j * s["fout"] + np.arange(R) - s["q0"]
                             sc = jw * s["foutw"] + np.arange(C) - s["q1"]
@@ -125,7 +182,7 @@ def _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
                             sv = side[np.clip(sr, 0, side.shape[0] - 1)][
                                 :, np.clip(sc, 0, side.shape[1] - 1)][
                                 ..., c0:c0 + CO]
-                            v = (_rshift(src, s["shift"])
+                            v = (_rshift(win, s["shift"])
                                  + _rshift(np.where(ok[..., None], sv, 0),
                                            s["s_side"]))
                         if s["relu"]:
@@ -142,7 +199,10 @@ def _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
                             valid = ((pr >= s["q0"]) & (pr < s["q0"] + s["true_h"])
                                      & (pc >= s["q1"])
                                      & (pc < s["q1"] + s["true_w"]))
-                            src = np.where(valid[..., None], v, s["fill_next"])
+                            v = np.where(valid[..., None], v, s["fill_next"])
+                            assert s["ps"] % 4 == 0 and s["ps"] >= CO
+                            flat, ps_in, src_cols = strided(v, s["ps"]), \
+                                s["ps"], C
     return out.astype(np.int8)
 
 
@@ -196,6 +256,45 @@ def test_descriptor_walk_matches_plain_on_model_launches():
                 oh=oh, ow=ow, oc=oc)
             np.testing.assert_array_equal(got, want.numpy(),
                                           err_msg=str(launch.nodes))
+
+
+@pytest.mark.parametrize("shape", [(7, 7, 3, 64), (3, 3, 192, 13),
+                                   (1, 1, 1024, 1000), (5, 5, 6, 8)])
+def test_chain_weights_pack_in_kernel_layout(shape):
+    """``pack_chain_weights``: row o holds output channel o's weights in
+    (kh, kw, ic) order with ic padded to 4 and K to 32 by zeros, and the 32
+    rows past OC are zero, so a block's panel never reads past the end."""
+    kh, kw, ic, oc = shape
+    w = _i8(np.random.default_rng(sum(shape)), shape)
+    p = ops.pack_chain_weights(torch.as_tensor(w)).numpy()
+    icp = -(-ic // 4) * 4
+    assert p.shape == (oc + 32, -(-kh * kw * icp // 32) * 32)
+    assert not p[oc:].any() and not p[:, kh * kw * icp:].any()
+    taps = p[:oc, :kh * kw * icp].reshape(oc, kh, kw, icp)
+    assert not taps[..., ic:].any()
+    np.testing.assert_array_equal(taps[..., :ic].transpose(1, 2, 3, 0), w)
+
+
+def test_oversized_panels_read_from_device_memory():
+    """A chain whose weight panels cannot all sit in shared memory beside
+    its windows reads the largest from device memory (bit i of the
+    header's last field), and the emulated kernel still equals the plain
+    version."""
+    chain = (("conv", "a", 3, 3, 1, 1, 1, 1, 1, 1, 7, True, 6, 6),
+             ("conv", "b", 1, 1, 1, 1, 0, 0, 1, 1, 5, False, 6, 6))
+    rng = np.random.default_rng(5)
+    x = _i8(rng, (1, 6, 6, 512))
+    w = [_i8(rng, (3, 3, 512, 256)), _i8(rng, (1, 1, 256, 16))]
+    b = [rng.integers(-3000, 3000, t.shape[-1]).astype(np.int32) for t in w]
+    oc_list = (256, 16)
+    tile = ops.choose_chain_tile(chain, 6, 6, 16, 512, 1, oc_list)
+    desc, smem = ops.chain_plan(chain, 6, 6, 16, 512, oc_list, tile)
+    assert desc[ops.HDR - 1] == 1 and smem <= ops.SMEM_MAX
+    got = _emulate_chain_kernel(x, w, b, [], chain, 6, 6, 16, tile)
+    want = ops.fused_chain_plain(
+        torch.as_tensor(x), [torch.as_tensor(t) for t in w],
+        [torch.as_tensor(t) for t in b], [], chain=chain, oh=6, ow=6, oc=16)
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 # ------------------------------------------------------------ the wrappers

@@ -40,6 +40,52 @@ def test_chain_kernel_matches_plain_on_hand_chains(dev, i):
         assert torch.equal(got, want), tile
 
 
+@pytest.mark.parametrize("model,img", [("googlenet", 64), ("resnet50", 32)])
+def test_chain_kernel_matches_plain_on_model_launches(dev, model, img):
+    """Every chain launch of the model, weights packed once as the executor
+    packs them, at the planner's tile and at forced ones (ragged, one
+    pixel, half the channels), bit-equal to the plain version at batch 2;
+    ResNet50 at 32 includes chains whose weight panels are too large for
+    shared memory beside the rest (their B fragments come from device
+    memory)."""
+    from torch_common import port_model
+    g, qm, _ = port_model(model, img)
+    prog = lower.lower_strategy(g, strategy("repro_torch", g), qm)
+    rng = np.random.default_rng(3)
+    n_global = 0
+    for launch in prog.launches():
+        if launch.kind != "chain":
+            continue
+        prep = ops.prepare_launch(launch, qm, dev)
+        x = torch.as_tensor(rng.integers(-128, 128, (2,) + tuple(
+            g.shape(launch.in_name)[1:])).astype(np.int8), device=dev)
+        if launch.fc_reshape:
+            x = x.reshape(2, 1, 1, -1)
+        sides = [torch.as_tensor(rng.integers(-128, 128, (2,) + tuple(
+            g.shape(sd)[1:])).astype(np.int8), device=dev)
+            for sd in launch.sides]
+        w = prep["weights"]
+        oc = int(w[-1].shape[-1]) if w else int(x.shape[-1])
+        kw = dict(chain=launch.stages, oh=launch.out_hw[0],
+                  ow=launch.out_hw[1], oc=oc)
+        want = ops.fused_chain_plain(x, w, prep["biases"], sides, **kw)
+        for tile in (None, (3, 5, oc), (1, 1, oc),
+                     (2, 2, oc // 2 if oc % 2 == 0 else oc)):
+            ops.reset_counts()
+            got = ops.fused_chain(x, w, prep["biases"], sides, **kw,
+                                  tile=tile, packed=prep["packed"])
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["fused_chain"] == 1
+            assert torch.equal(got, want), (launch.nodes, tile)
+        desc = ops._chain_call(
+            launch.stages, kw["oh"], kw["ow"], oc, None,
+            (tuple(x.shape), x.stride()), tuple(tuple(t.shape) for t in w),
+            tuple(tuple(t.shape) for t in prep["biases"]),
+            tuple((tuple(sd.shape), sd.stride()) for sd in sides))[0]
+        n_global += int(desc[31] != 0)
+    assert (n_global > 0) == (model == "resnet50")
+
+
 @pytest.mark.parametrize("shape", GOOGLENET_HORIZONTAL + RAGGED_HORIZONTAL)
 def test_horizontal_kernel_matches_plain(dev, shape):
     """Bit equality with the plain version at batch 1 (GoogLeNet's own
@@ -126,12 +172,17 @@ def test_flash_kernel_matches_plain(dev, b, sq, sk, h, kv, d, off, causal):
     (1, 256, 32, 64, 128, True),      # Zamba2's heads, q/k with stride 0
     (1, 128, 1, 1024, 64, False),     # xLSTM's head dim, narrow V
     (1, 32, 2, 8, 8, False),
+    (2, 100, 3, 20, 13, False),       # K, V not multiples of 8: loads by
+                                      # element on the bf16 route
+    (1, 130, 2, 512, 40, False),      # the bf16 route's K <= 512 variant
 ])
 def test_ssm_scan_kernel_matches_plain(dev, b, s, h, dk, dv, bcast):
-    """At both column slab widths: fp32 against ``chunked_linear_scan`` at
-    2e-4 of each output row's largest value (the JAX package's
-    Pallas-vs-chunked tolerance), bf16 and fp16 against ``scan_fp32`` at
-    ``OUT_REL_TOL``."""
+    """Each dtype's route at every column slab width it takes: fp32 against
+    ``chunked_linear_scan`` at 2e-4 of each output row's largest value (the
+    JAX package's Pallas-vs-chunked tolerance), bf16 (the tensor-core
+    route) and fp16 against ``scan_fp32`` at ``OUT_REL_TOL``, and bf16
+    element by element: at most ``ROUND_SHARE_TOL`` of its elements differ
+    from ``scan_fp32`` rounded to bf16."""
     from repro_torch.kernels.ssm_scan import ops as scan
     from repro_torch.nn import recurrent as rec
 
@@ -149,15 +200,18 @@ def test_ssm_scan_kernel_matches_plain(dev, b, s, h, dk, dv, bcast):
         want = want32 if dtype == torch.float32 else scan.scan_fp32(
             qt, kt, vt, la)
         tol = scan.OUT_REL_TOL.get(dtype, 2e-4)
-        for width in scan.SLABS:
-            if scan.library().repro_ssm_scan_smem(dk, width) > scan.MAX_SMEM:
-                continue
+        widths = scan.slabs(dtype, dk)
+        assert widths
+        for width in widths:
             scan.reset_counts()
             got = scan.launch(qt, kt, vt, la, width)
             torch.cuda.synchronize()
             assert scan.LAUNCHES["ssm_scan"] == 1
             assert got.dtype == dtype and torch.isfinite(got).all()
             assert scan.row_rel_err(got, want) <= tol, (dtype, width)
+            if dtype == torch.bfloat16:
+                assert scan.round_mismatch(got, want) <= \
+                    scan.ROUND_SHARE_TOL, width
         scan.reset_counts()
         scan.ssm_scan(qt, kt, vt, la, chunk=rec.chunk_for(s))
         assert scan.LAUNCHES["ssm_scan"] == 1

@@ -1,8 +1,10 @@
 """The port's chunked linear scan and sLSTM cell against the JAX package on
 the same numpy inputs: ``chunked_linear_scan``, ``linear_step``,
-``sequential_ref``, ``slstm_scan``/``slstm_step``, and the scan wrapper
+``sequential_ref``, ``slstm_scan``/``slstm_step``, the scan wrapper
 (which takes its plain version on the CPU) against the Pallas kernel in
-interpret mode.  On the card the CUDA kernel is held against the plain
+interpret mode, and a plain-torch model of the bf16 route's two CUDA
+kernels (intra-chunk pass, slab-wise state pass, bf16 hi/lo operand
+splits) against the Pallas kernel and the step-by-step recurrence.  On the card the CUDA kernel is held against the plain
 version in fp32 and, in bf16 and fp16, against ``scan_fp32``, whose match
 with the Pallas kernel's bf16 numerics is checked here
 (``test_torch_cuda.py``, ``chip_smoke.py``)."""
@@ -221,3 +223,146 @@ def test_row_rel_err_catches_a_dropped_chunk():
     assert ops.row_rel_err(want, want) == 0.0
     assert ops.row_rel_err(dropped, want) > 10 * ops.OUT_REL_TOL[
         torch.bfloat16]
+
+
+# ------------------------------------------- the bf16 route's decomposition
+def _split(x):
+    """x as a bf16 high half and the bf16 of what it leaves (x = hi + lo to
+    about 16 bits beyond bf16), both returned in fp32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _bf16_route(q, k, v, log_a, vt, split=_split):
+    """What ``scan_intra_kernel`` and ``scan_state_kernel`` compute, in plain
+    torch, without the final rounding of y.  Intra pass, per (batch, head,
+    chunk of ``ops.CHUNK`` steps, the last one ragged): cum by a scan, P =
+    q k^T (bf16 operands, fp32 sums) masked and decayed below the diagonal,
+    kept as bf16 hi and lo halves, and exp(cum_i), w_j = exp(cum_T - cum_j),
+    exp(cum_T) (``split`` makes the halves).  State pass, per slab of ``vt`` columns of V: S carried
+    across the chunks in fp32, each product on bf16 operands with every
+    fp32 operand split into hi and lo: y = exp(cum_i) (q S_hi + q S_lo) +
+    P_hi v + P_lo v, then S = exp(cum_T) S + k^T (v w)_hi + k^T (v w)_lo."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    T = ops.CHUNK
+    y = torch.zeros((b, s, h, dv))
+    for bi in range(b):
+        for hh in range(h):
+            chunks = []
+            for t0 in range(0, s, T):
+                qc, kc = (t[bi, t0:t0 + T, hh].float() for t in (q, k))
+                cum = torch.cumsum(log_a[bi, t0:t0 + T, hh].float(), 0)
+                tn = qc.shape[0]
+                tri = torch.tril(torch.ones(tn, tn, dtype=torch.bool))
+                P = torch.where(tri, (qc @ kc.T) * torch.exp(
+                    cum[:, None] - cum[None, :]), 0.0)
+                chunks.append((t0, qc, kc, split(P), torch.exp(cum),
+                               torch.exp(cum[-1] - cum), torch.exp(cum[-1])))
+            for c0 in range(0, dv, vt):
+                S = torch.zeros((dk, min(vt, dv - c0)))
+                for t0, qc, kc, (ph, pl), ein, w, et in chunks:
+                    vs = v[bi, t0:t0 + T, hh, c0:c0 + vt].float()
+                    sh, sl = split(S)
+                    y[bi, t0:t0 + T, hh, c0:c0 + vt] = (
+                        ein[:, None] * (qc @ sh + qc @ sl) + ph @ vs + pl @ vs)
+                    vh, vl = split(vs * w[:, None])
+                    S = et * S + kc.T @ vh + kc.T @ vl
+    return y
+
+
+# (b, s, h, K, V, q and k broadcast over the heads): ragged last chunks,
+# K != V, V not a multiple of a slab, broadcast heads
+ROUTE = [(1, 200, 2, 16, 24, False), (2, 96, 1, 40, 24, False),
+         (1, 130, 3, 8, 40, True), (1, 64, 2, 24, 16, False)]
+
+
+def _route_inputs(case, seed):
+    """bf16-representable inputs (the route's operands are exact), numpy."""
+    b, s, h, dk, dv, bcast = case
+    q, k, v, la = _inputs(np.random.default_rng(seed), b, s, h, dk, dv,
+                          decay=0.3)
+    if bcast:
+        q = np.broadcast_to(q[:, :, :1], q.shape).copy()
+        k = np.broadcast_to(k[:, :, :1], k.shape).copy()
+    r = [torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+         for a in (q, k, v)]
+    return (*r, la)
+
+
+@pytest.mark.parametrize("case", ROUTE)
+@pytest.mark.parametrize("vt", ops.SLABS[torch.bfloat16])
+def test_bf16_route_decomposition_matches_sequential(case, vt):
+    """The route's arithmetic, before y is rounded, against the step-by-step
+    recurrence at the fp32 tolerance (2e-4 of each output row's largest
+    value): the hi/lo splits keep it near fp32 rounding."""
+    arrays = _route_inputs(case, sum(case[:5]))
+    q, k, v, la = _t(arrays)
+    if case[5]:
+        q, k = (t[:, :, :1].expand(t.shape) for t in (q, k))
+    got = _bf16_route(q, k, v, la, vt)
+    want = ops.sequential_ref(*_t(arrays))
+    assert ops.row_rel_err(got, want) <= 2e-4
+
+
+@pytest.mark.parametrize("case", ROUTE)
+def test_bf16_route_decomposition_matches_pallas_bf16(case):
+    """Rounded to bf16, the route's arithmetic agrees with the Pallas kernel
+    (interpret mode) on the same bf16 inputs to ``OUT_REL_TOL`` of each
+    output row's largest value, the tolerance the card holds the kernels
+    to."""
+    arrays = _route_inputs(case, 7 * case[1] + case[3])
+    want = jax_ssm_scan(*_j(arrays, jnp.bfloat16), chunk=case[1])
+    got = _bf16_route(*_t(arrays, torch.bfloat16), ops.SLABS[
+        torch.bfloat16][-1]).to(torch.bfloat16)
+    err = ops.row_rel_err(got, torch.tensor(np.asarray(
+        want.astype(jnp.float32))))
+    assert err <= ops.OUT_REL_TOL[torch.bfloat16]
+
+
+def test_bf16_route_needs_the_low_halves():
+    """Dropping the lo halves (bf16 operands only) leaves an error far above
+    the fp32 tolerance that the full route meets: the splits are what keep
+    the tensor-core route at fp32 accuracy."""
+    arrays = _route_inputs((1, 128, 1, 32, 32, False), 3)
+    q, k, v, la = _t(arrays)
+    want = ops.sequential_ref(q, k, v, la)
+    full = ops.row_rel_err(_bf16_route(q, k, v, la, 32), want)
+    hi_only = ops.row_rel_err(_bf16_route(
+        q, k, v, la, 32, split=lambda x: (x.to(torch.bfloat16).float(),
+                                          torch.zeros_like(x))), want)
+    assert full <= 2e-4 < hi_only and 10 * full < hi_only
+
+
+@pytest.mark.parametrize("case", ROUTE)
+def test_bf16_route_rounds_like_fp32(case):
+    """Rounded to bf16, the route's arithmetic on bf16 inputs differs from
+    ``scan_fp32`` rounded to bf16 in at most ``ROUND_SHARE_TOL`` of the
+    elements (the card's element-wise check of the kernel); without the lo
+    halves it differs in far more, although it stays inside the row-relative
+    ``OUT_REL_TOL``."""
+    arrays = _route_inputs(case, 3 * case[1] + case[4])
+    q, k, v, la = _t(arrays)
+    if case[5]:
+        q, k = (t[:, :, :1].expand(t.shape) for t in (q, k))
+    want = ops.scan_fp32(q, k, v, la)
+    full = _bf16_route(q, k, v, la, 32).to(torch.bfloat16)
+    hi_only = _bf16_route(q, k, v, la, 32, split=lambda x: (
+        x.to(torch.bfloat16).float(), torch.zeros_like(x))).to(
+        torch.bfloat16)
+    assert ops.round_mismatch(full, want) <= ops.ROUND_SHARE_TOL
+    assert ops.round_mismatch(hi_only, want) > 8 * ops.ROUND_SHARE_TOL
+
+
+def test_slab_choice_covers_both_regimes():
+    """The bf16 route's slab widths by the wrapper's rule, the widest that
+    fits and is no wider than V: xLSTM's K = V = 1024 takes 32 (the only
+    width whose state fits the registers), Zamba2's K = 64, V = 128 takes
+    one 128-column slab per head; a narrow V takes 32, the narrowest."""
+    widths = ops.SLABS[torch.bfloat16]
+    assert ops.pick_slab((32,), 4, 4, 1024, 132) == 32
+    assert ops.pick_slab(widths, 4, 32, 128, 132) == 128
+    assert ops.pick_slab(widths, 1, 1, 24, 132) == 32
+    assert ops.pick_slab(widths, 2, 2, 96, 132) == 32
+    assert ops.pick_slab((64, 32), 4, 32, 128, 132,
+                         dtype=torch.float32) == 64
