@@ -21,11 +21,23 @@ Phases (any failure raises and the script exits non-zero):
    (``prepare_launch``), as the executor passes them.  Each kernel is timed
    with CUDA events at the main path's shapes beside its plain version (and, for the horizontal 1x1 launches, ``torch._int_mm``
    at the same M, K, N as a yardstick the port never calls).
+   At int32-extreme biases (within 2^20 of +-2^31) and shifts 1, 31, 32,
+   33 and 40, hand-built chains (conv then elt) and horizontal launches.
 3. The slice: GoogLeNet at 224x224x3, 1000 classes, random weights from a
    seed, calibrated with the port's float executor on the card, planned
-   under ZU2, served by ``Session(device="cuda")``: ``validate.bit_exact``
-   (fused against ref), launch counts per image, and a ``Server`` answering
-   16 requests bit-equal to ``Session.run``.
+   under ZU2, compiled through the plan cache (``asm.PLAN_CACHE``: a miss,
+   then a hit) and served by ``Session(device="cuda")``:
+   ``validate.bit_exact`` (fused against ref), launch counts per image, and
+   a ``Server`` answering 16 requests bit-equal to ``Session.run``.  The
+   DNNVM object file: saved, loaded and reopened by
+   ``Session.from_artifact`` with no recompile, its stored program
+   dispatched (42 chain + 9 horizontal launches per image, no plain call)
+   and bit-equal to the compiled session on 16 images;
+   ``stages.compile_model(...).session`` bit-equal too;
+   ``validate.artifact_round_trip`` exact on the card for GoogLeNet-224 and
+   ResNet50-224.  The host's seconds to compile, save and load, the file's
+   bytes, the plan's peak DDR bytes, reuse factor, instruction count and
+   simulated cycles, and the two sessions' ``Session.run`` p50 are logged.
 4. Flash attention on the card: fp32 (TF32 off) against its plain PyTorch
    version at 2e-5, and bf16 against the kernel's arithmetic unfused in
    fp32 (``attention_fp32``) at two bf16 unit roundoffs of each output
@@ -123,6 +135,9 @@ HORIZONTAL_RAGGED = [
     (5, 7, 48, 37, 1, 1, 1, 0), (7, 7, 832, 40, 1, 1, 1, 0),
     (9, 11, 3, 20, 3, 3, 2, 1), (9, 11, 32, 24, 3, 3, 2, 1),
     (13, 13, 24, 70, 3, 3, 2, 1)]
+# round_shift where the reference's int32 arithmetic wraps: biases within
+# 2^20 of -2^31 and 2^31 - 1, shifts from 1 past 32
+EXTREME_SHIFTS = (1, 31, 32, 33, 40)
 SCAN_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:49"
 SCAN_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 # (b, s, h, k, v, q and k broadcast over the heads) of the scan checks
@@ -308,9 +323,34 @@ def check_equal(got, want, what: str) -> int:
 
 
 # ----------------------------------------------------------------- phase 2
+def extreme_bias(n, gen, dev):
+    """int32 biases within 2^20 of -2^31 and 2^31 - 1, alternating."""
+    off = torch.randint(0, 1 << 20, (n,), generator=gen, dtype=torch.int64)
+    top = torch.arange(n) % 2 == 1
+    b = torch.where(top, (1 << 31) - 1 - off, -(1 << 31) + off)
+    return b.to(torch.int32).to(dev)
+
+
+def extreme_horizontal(gen, dev):
+    """Horizontal launches at batch 1 and 2 whose 4-channel siblings carry
+    the shifts of ``EXTREME_SHIFTS`` and biases near the int32 extremes."""
+    k, oc = 4, 4 * len(EXTREME_SHIFTS)
+    shift = torch.tensor(EXTREME_SHIFTS, dtype=torch.int32).repeat_interleave(k)
+    relu = (torch.arange(len(EXTREME_SHIFTS)) % 2).to(torch.int32)
+    out = []
+    for n, (h, w, ic, kh) in ((1, (8, 6, 16, 3)), (2, (14, 14, 64, 1))):
+        a = (rand_int8((n, h, w, ic), gen, dev),
+             rand_int8((kh, kh, ic, oc), gen, dev), extreme_bias(oc, gen, dev),
+             shift.to(dev), relu.repeat_interleave(k).to(dev))
+        out.append((a, dict(stride=(1, 1), pad=(kh // 2, kh // 2))))
+    return out
+
+
 def hand_chains(gen, dev):
     """Chains the two models do not produce: avg and ceil-mode pools,
-    negative shifts, an elt side with its own shift, dilation, gap."""
+    negative shifts, an elt side with its own shift, dilation, gap; and a
+    conv with biases near the int32 extremes then an elt stage, at each of
+    ``EXTREME_SHIFTS`` (the elt side shifted left by as much)."""
     c1 = (("conv", "c", 3, 3, 1, 1, 1, 1, 1, 1, -2, True, 13, 11),
           ("pool", "a", "avg", 3, 3, 2, 2, 1, 1, 7, 6, 9),
           ("elt", "e", 1, -1, True, 7, 6),
@@ -330,6 +370,13 @@ def hand_chains(gen, dev):
                            dtype=torch.int32).to(dev),) if w_shape else ()
         sides = (rand_int8(side_shape, gen, dev),) if side_shape else ()
         out.append(((x, w, b, sides), dict(chain=chain, oh=oh, ow=ow, oc=oc)))
+    for s in EXTREME_SHIFTS:
+        chain = (("conv", "c", 3, 3, 1, 1, 1, 1, 1, 1, s, False, 13, 11),
+                 ("elt", "e", s, -s, s % 2 == 0, 13, 11))
+        out.append(((x, (rand_int8((3, 3, 8, 12), gen, dev),),
+                     (extreme_bias(12, gen, dev),),
+                     (rand_int8((2, 13, 11, 12), gen, dev),)),
+                    dict(chain=chain, oh=13, ow=11, oc=12)))
     return out
 
 
@@ -383,7 +430,14 @@ def kernel_phase(models, dev) -> dict:
             check_equal(ops.fused_chain(*args, **kw, tile=tile), want,
                         f"hand chain {[st[0] for st in kw['chain']]} {tile}")
             n_hand += 1
-    log(f"fused_chain == plain on {n_hand} hand-built chain runs")
+    log(f"fused_chain == plain on {n_hand} hand-built chain runs "
+        f"({len(EXTREME_SHIFTS)} chains at int32-extreme biases, shifts {EXTREME_SHIFTS})")
+    for a, kw in extreme_horizontal(gen, dev):
+        check_equal(ops.fused_horizontal(*a, **kw),
+                    ops.fused_horizontal_plain(*a, **kw),
+                    f"horizontal at int32 extremes, batch {a[0].shape[0]}")
+    log(f"fused_horizontal == plain at int32-extreme biases, sibling shifts "
+        f"{EXTREME_SHIFTS}, batch 1 (3x3) and 2 (1x1)")
     m = models["googlenet"]
     for launch in m["program"].launches():
         if launch.kind != "horizontal":
@@ -502,8 +556,12 @@ def profile_device(fn, n: int, trace_name: str) -> dict:
     launches count the trace's kernel events by the kernel's name without
     its template arguments.  One more call of ``fn`` before them is the
     profiler's warm-up step, traced and dropped: without it the first
-    kernels of the traced calls can be missing from the trace.  The
-    wrappers' launch counts are set to 0 after it, so on return they hold
+    kernels of the traced calls can be missing from the trace; the host
+    then idles 0.2 s into the active step before the first traced call
+    (one trace of 42 xLSTM-1.3B scan calls still lacked one call's two
+    kernels without that pause).  ``trace_launches_without_kernel`` counts
+    kernel-launch API events whose kernel the trace lacks.  The wrappers'
+    launch counts are set to 0 after the warm-up, so on return they hold
     the traced calls' launches."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -517,6 +575,7 @@ def profile_device(fn, n: int, trace_name: str) -> dict:
         torch.cuda.synchronize()
         prof.step()
         reset_all_counts()
+        time.sleep(0.2)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -542,11 +601,18 @@ def profile_device(fn, n: int, trace_name: str) -> dict:
             launches[base] = launches.get(base, 0) + 1
     span = dev[-1][1] - dev[0][0]
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    traced = {e.get("args", {}).get("correlation") for e in events
+              if e.get("ph") == "X" and e.get("cat") == "kernel"}
+    lost = sum(1 for e in events if e.get("ph") == "X"
+               and e.get("cat") == "cuda_runtime" and "LaunchKernel" in
+               e.get("name", "") and e.get("args", {}).get("correlation")
+               not in traced)
     return {"device_busy_share": busy / span,
             "device_span_ms_per_call": span / 1e3 / n,
             "device_events_per_call": len(dev) / n,
             "device_ms_per_call_by_kernel": top,
-            "device_launches_by_kernel": launches}
+            "device_launches_by_kernel": launches,
+            "trace_launches_without_kernel": lost}
 
 
 def kernel_name(event: str) -> str:
@@ -564,12 +630,78 @@ def profile_runs(sess, imgs) -> dict:
                           "googlenet_run_trace.json")
 
 
-def slice_phase(m, dev, card: str) -> dict:
+def outputs_equal(got: dict, want: dict, what: str) -> None:
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: outputs {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for k in want:
+        check_equal(got[k], want[k], f"{what} {k}")
+
+
+def run_p50_ms(sessions: dict, imgs, turns: int = 4) -> dict:
+    """Host-clock p50 of ``Session.run`` per session, the sessions taking
+    turns over the images so the host's drift falls on each alike."""
+    lat = {k: [] for k in sessions}
+    for _ in range(turns):
+        for x in imgs:
+            for k, sess in sessions.items():
+                t0 = time.perf_counter()
+                sess.run(x)
+                torch.cuda.synchronize()
+                lat[k].append(time.perf_counter() - t0)
+    return {k: 1e3 * sorted(v)[len(v) // 2] for k, v in lat.items()}
+
+
+def artifact_path(sess, imgs, dev) -> dict:
+    """The DNNVM object file of the compiled session: saved, loaded and
+    reopened through ``Session.from_artifact`` with no recompile, then the
+    reopened session serving every image (its own counted path)."""
+    from repro_torch import asm
+    from repro_torch.kernels.conv_fused import ops
+    from repro_torch.runtime import Session
+
+    path = os.path.join(OUT, "googlenet224.dnnvm.npz")
+    _, save_s = timed(lambda: asm.save_artifact(sess.artifact, path))
+    loaded, load_s = timed(lambda: asm.load_artifact(path))
+    misses = asm.PLAN_CACHE.misses
+    reopened, open_s = timed(lambda: Session.from_artifact(loaded,
+                                                           device=dev))
+    if asm.PLAN_CACHE.misses != misses or not reopened.cache_hit:
+        raise AssertionError("Session.from_artifact recompiled")
+    if reopened.executor.program is not loaded.program:
+        raise AssertionError("the reopened session re-lowered the program")
+    ops.reset_counts()                       # ---- reopened path starts
+    outs = [reopened.run(x) for x in imgs]
+    torch.cuda.synchronize()
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    # ---- reopened path ends
+    n = len(imgs)
+    if launches != {"fused_chain": 42 * n, "fused_horizontal": 9 * n} or any(
+            plain.values()):
+        raise AssertionError(f"reopened session: launches {launches} for "
+                             f"{n} images, plain calls {plain}")
+    for i, (x, got) in enumerate(zip(imgs, outs)):
+        outputs_equal(got, sess.run(x), f"reopened session image {i}")
+    art = sess.artifact
+    return {"session": reopened, "launches": launches,
+            "save_s": save_s, "load_s": load_s, "open_s": open_s,
+            "bytes_on_disk": os.path.getsize(path),
+            "peak_ddr_bytes": art.peak_ddr_bytes,
+            "reuse_factor": art.reuse_factor,
+            "instructions": len(art.instrs),
+            "sim_total_cycles": art.sim_total_cycles,
+            "fused_coverage": art.fused_coverage,
+            "ref_fallbacks": art.program.meta["n_fallbacks"]}
+
+
+def slice_phase(models, dev, card: str) -> dict:
+    from repro_torch import asm, stages
     from repro_torch.core import quantize, validate
     from repro_torch.hw import ZU2
     from repro_torch.kernels.conv_fused import ops
     from repro_torch.runtime import Session
 
+    m = models["googlenet"]
     g, qm, s = m["g"], m["qm"], m["strategy"]
     xq = quantize.quantize_to(m["x"], qm.f_a["data"])
     rep = validate.bit_exact(g, qm, xq, s, device=dev,
@@ -583,11 +715,15 @@ def slice_phase(m, dev, card: str) -> dict:
     imgs = [quantize.quantize_to(rng.standard_normal(g.shape("data")[1:]),
                                  qm.f_a["data"]) for _ in range(16)]
     ops.reset_counts()                       # ---- main path starts here
-    sess = Session(g, s, ZU2, qm, device=dev)
+    t0 = time.perf_counter()
+    sess = Session(g, s, ZU2, qm, device=dev)      # plan-cache miss: compile
+    compile_s = time.perf_counter() - t0
     out = sess.run(imgs[0])
     torch.cuda.synchronize()
     per_image = dict(ops.LAUNCHES)
     plain = dict(ops.PLAIN_CALLS)
+    if sess.cache_hit:
+        raise AssertionError("the first Session did not compile")
     if per_image != {"fused_chain": 42, "fused_horizontal": 9} or any(
             plain.values()):
         raise AssertionError(f"launches per image {per_image}, plain calls "
@@ -613,6 +749,39 @@ def slice_phase(m, dev, card: str) -> dict:
     for i, (x, ans) in enumerate(zip(imgs, answers)):
         want = sess.run(x)["prob"]
         check_equal(ans["prob"], want, f"server answer {i}")
+    t0 = time.perf_counter()
+    second = Session(g, s, ZU2, qm, device=dev)
+    hit_s = time.perf_counter() - t0
+    if not second.cache_hit or second.artifact is not sess.artifact:
+        raise AssertionError("a second Session with the same arguments "
+                             "missed the plan cache")
+    art = artifact_path(sess, imgs, dev)
+    reopened = art.pop("session")
+    co = stages.compile_model(g, qm, ZU2, strategy=s).session(device=dev)
+    for i, x in enumerate(imgs):
+        outputs_equal(co.run(x), sess.run(x), f"compile_model session "
+                      f"image {i}")
+    trips = {}
+    for name in ("googlenet", "resnet50"):
+        mm = models[name]
+        t0 = time.perf_counter()
+        trip = validate.artifact_round_trip(
+            mm["g"], mm["qm"], quantize.quantize_to(mm["x"],
+                                                    mm["qm"].f_a["data"]),
+            mm["strategy"], ZU2, os.path.join(OUT, f"{name}_trip.npz"),
+            device=dev)
+        if not trip.bit_exact:
+            raise AssertionError(f"{name}-224 artifact round trip on {dev}: "
+                                 f"{trip}")
+        trips[name] = time.perf_counter() - t0
+    log(f"validate.artifact_round_trip on the card: exact for GoogLeNet-224 "
+        f"and ResNet50-224 ({json.dumps(trips)} s)")
+    p50 = run_p50_ms({"compiled": sess, "reopened": reopened}, imgs)
+    art.update({"compile_s": compile_s, "cache_hit_s": hit_s,
+                "run_p50_ms_compiled": p50["compiled"],
+                "run_p50_ms_reopened": p50["reopened"]})
+    log(f"GoogLeNet-224 object file on {card} (host seconds and host-clock "
+        f"p50, not kernel times): " + json.dumps(art))
     lat = []
     for x in imgs:
         t1 = time.perf_counter()
@@ -626,7 +795,8 @@ def slice_phase(m, dev, card: str) -> dict:
            "server_batches": stats["batch_histogram"],
            "run_p50_ms": 1e3 * lat[len(lat) // 2],
            "run_p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
-           "launches_per_image": per_image, "launches": launches, **prof}
+           "launches_per_image": per_image, "launches": launches,
+           "artifact": art, **prof}
     log(f"GoogLeNet-224 serving on {card}: " + json.dumps(res))
     return res
 
@@ -1090,9 +1260,11 @@ def recurrent_slice_phase(arch: str, dev, card: str) -> dict:
         for kern in scan.ROUTES[torch.bfloat16]}
     if n_calls != _n_scans(cfg) or any(
             c != n_calls for c in device_launches.values()):
-        raise AssertionError(f"{arch} profiled prefill: {n_calls} ssm_scan "
-                             f"calls, device launches in the trace "
-                             f"{device_launches}")
+        raise AssertionError(
+            f"{arch} profiled prefill: {n_calls} ssm_scan calls, device "
+            f"launches in the trace {device_launches}; kernel launches "
+            f"whose kernel the trace lacks: "
+            f"{prof_prefill.get('trace_launches_without_kernel')}")
     log(f"{arch} prefill profiled ({n_calls} ssm_scan calls; device "
         f"launches in the trace {device_launches}): "
         + json.dumps(prof_prefill))
@@ -1259,7 +1431,7 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.1f} s")
     checked = kernel_phase(models, dev)
     timing = timing_phase(models["googlenet"], dev)
-    served = slice_phase(models["googlenet"], dev, card)
+    served = slice_phase(models, dev, card)
     del models
     torch.cuda.empty_cache()
     flash_errs = flash_kernel_phase(dev)
@@ -1332,6 +1504,7 @@ def main() -> int:
                          "plain_ms": scan_t[arch]["plain_ms"],
                          "bound_ms": scan_t[arch]["bound_ms"]}
                   for arch in recurrent}})
+    checked["artifact"] = served["artifact"]
     checked["flash_max_abs_err"] = flash_errs
     checked["ssm_scan_err"] = scan_errs
     print(json.dumps({"kernels": kernels, "checked": checked,

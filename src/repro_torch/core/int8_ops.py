@@ -17,6 +17,7 @@ same code runs on int8 and int32 on every device, with explicit pad values
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -37,25 +38,45 @@ def ceil_extension(h: int, w: int, kernel, stride, pad) -> tuple[int, int]:
             max(0, (ow - 1) * sw + kw - w - 2 * pw))
 
 
+_M32 = (1 << 32) - 1
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values -> the int32 value with the same low 32 bits (int64)."""
+    return ((v + (1 << 31)) & _M32) - (1 << 31)
+
+
+def add32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b wrapped to int32, as the reference's int32 addition wraps."""
+    return _wrap32(a.to(torch.int64) + b.to(torch.int64)).to(torch.int32)
+
+
 def round_shift(x: torch.Tensor, s) -> torch.Tensor:
-    """x * 2^{-s} with round-half-away-from-zero; x integer, ``s`` an int or
+    """x * 2^{-s} with round-half-away-from-zero; x int32, ``s`` an int or
     an integer tensor broadcast against ``x`` (negative s = left shift).
 
-    Computed in int64 and wrapped to int32, as the reference's int32
-    arithmetic wraps."""
+    Bit-equal to the reference's int32 arithmetic under XLA's rules: |x| of
+    -2^31 is -2^31 and ``|x| + 2^(s-1)`` wraps to 32 bits (``1 << 31`` is
+    -2^31), a left shift by 32 or more gives 0, and an arithmetic right
+    shift by 32 or more fills with the sign bit (the same as a shift by
+    31).  The steps run on int64 values, each wrapped back to int32 where
+    the reference wraps; ``sign(x) * r`` cannot wrap, since a right shift
+    by at least 1 leaves |r| <= 2^30."""
     x = x.to(torch.int64)
     if not torch.is_tensor(s):
         s = int(s)
-        if s > 0:
-            y = torch.sign(x) * ((x.abs() + (1 << (s - 1))) >> s)
-        else:
-            y = x << (-s)
-        return y.to(torch.int32)
+        if s <= 0:
+            y = _wrap32(x << -s) if s > -32 else torch.zeros_like(x)
+            return y.to(torch.int32)
+        half = 1 << (s - 1) if s <= 32 else 0
+        r = _wrap32(x.abs() + half) >> min(s, 31)
+        return (torch.sign(x) * r).to(torch.int32)
     s = s.to(device=x.device, dtype=torch.int64)
     sp = s.clamp(min=1)
-    right = torch.sign(x) * ((x.abs() + (torch.ones_like(sp) << (sp - 1)))
-                             >> sp)
-    left = x << (-s).clamp(min=0)
+    half = torch.where(sp > 32, 0, 1 << (sp - 1).clamp(max=31))
+    right = torch.sign(x) * (_wrap32(x.abs() + half) >> sp.clamp(max=31))
+    ls = (-s).clamp(min=0)
+    left = torch.where(ls >= 32, 0, _wrap32(x << ls.clamp(max=31)))
     return torch.where(s > 0, right, left).to(torch.int32)
 
 
@@ -106,7 +127,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     Output int8 at f_y where shift = f_x + f_w - f_y."""
     acc = conv_acc(x, w, stride=tuple(stride), pad=tuple(pad),
                    dilation=tuple(dilation), groups=groups)
-    return requantize(acc + b.to(torch.int32), shift, relu)
+    return requantize(add32(acc, b), shift, relu)
 
 
 def depthwise_conv2d(x, w, b, *, stride=(1, 1), pad=(0, 0), shift=0,
@@ -129,7 +150,7 @@ def fc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, shift=0,
        relu: bool = False) -> torch.Tensor:
     """x (N,H,W,C) int8 -> (N,1,1,OC); w ((H*W*C), OC)."""
     n = x.shape[0]
-    acc = int_matmul(x.reshape(n, -1), w) + b.to(torch.int32)
+    acc = add32(int_matmul(x.reshape(n, -1), w), b)
     return requantize(acc, shift, relu).reshape(n, 1, 1, -1)
 
 
@@ -186,7 +207,8 @@ def global_avgpool(x: torch.Tensor) -> torch.Tensor:
 
 
 def eltwise_add(xs, fs, f_out: int, relu: bool = False) -> torch.Tensor:
-    acc = sum(rescale(x, f, f_out) for x, f in zip(xs, fs))
+    acc = functools.reduce(add32, [rescale(x, f, f_out)
+                                   for x, f in zip(xs, fs)])
     if relu:
         acc = acc.clamp(min=0)
     return sat8(acc)

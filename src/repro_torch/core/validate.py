@@ -1,9 +1,10 @@
 """Validation environment (paper §3.2, "Validation Module").
 
-Port of ``src/repro/core/validate.py`` (``fused_coverage`` and
-``bit_exact``).  The per-node fixed-point executor is the oracle; the fused
-executor (the CUDA kernels on the card, their plain versions on the CPU) is
-the side under test.  ``bit_exact`` fails on a single differing int8 value.
+Port of ``src/repro/core/validate.py`` (``fused_coverage``, ``bit_exact``
+and ``artifact_round_trip``).  The per-node fixed-point executor is the
+oracle; the fused executor (the CUDA kernels on the card, their plain
+versions on the CPU) is the side under test.  ``bit_exact`` fails on a
+single differing int8 value.
 """
 from __future__ import annotations
 
@@ -91,3 +92,43 @@ def bit_exact(g: XGraph, qm: QuantizedModel, x: np.ndarray, strategy=None,
             p_err = float(np.mean((f - q) ** 2)) or 1e-12
             sqnr[k] = 10.0 * np.log10(p_sig / p_err)
     return ValidationReport(exact, len(ref), max_diff, sqnr)
+
+
+def artifact_round_trip(g: XGraph, qm: QuantizedModel, x: np.ndarray,
+                        strategy, dev, path: str, backend: str = "fused",
+                        device=None) -> ValidationReport:
+    """Memory-plan analogue of :func:`bit_exact`: compile ``strategy`` to a
+    DNNVM object file, save -> load, execute the *loaded* artifact on its
+    *rebuilt* graph, and require bit-identity with the in-memory plan's
+    execution and with the unfused oracle, all on ``device`` (None: CUDA).
+    A single differing int8 value anywhere fails the round trip."""
+    from repro_torch.asm import (compile_strategy, graph_signature,
+                                 load_artifact, save_artifact)
+
+    art = compile_strategy(g, strategy, dev, qm=qm)
+    save_artifact(art, path)
+    loaded = load_artifact(path)
+    # re-sign the *reconstructed* graph: catches any attr the npz round trip
+    # dropped or mangled, not just a corrupted stored string
+    if graph_signature(loaded.rebuild_graph()) != art.graph_sig:
+        raise AssertionError(
+            "graph signature drifted through the artifact round trip")
+
+    mem = Int8Executor(g, qm, strategy=art, backend=backend,
+                       device=device)(x)
+    got = loaded.executor(backend=backend, device=device)(x)
+    ref = Int8Executor(g, qm, strategy=None, backend="ref", device=device)(x)
+    if not set(ref) == set(got) == set(mem):
+        raise AssertionError("output sets differ")
+    max_diff, exact = 0, True
+    for k in ref:
+        r = ref[k].cpu().numpy()
+        for o in (mem[k].cpu().numpy(), got[k].cpu().numpy()):
+            if r.dtype != o.dtype or not np.array_equal(r, o):
+                exact = False
+                if r.shape == o.shape:
+                    max_diff = max(max_diff, int(np.max(np.abs(
+                        r.astype(np.int64) - o.astype(np.int64)))))
+                else:
+                    max_diff = -1
+    return ValidationReport(exact, len(ref), max_diff, {})

@@ -111,16 +111,27 @@ struct ChainParams {
   const int8_t* side[MAX_STAGES];
 };
 
+// The reference's int32 arithmetic (src/repro/core/int8_ops.py round_shift)
+// under XLA's rules, with every wrap done on uint32_t so that it is defined:
+// |x| of -2^31 is -2^31, |x| + 2^(s-1) wraps (1 << 31 is -2^31, a shift by
+// 32 or more gives 0), and an arithmetic right shift by 32 or more fills
+// with the sign bit, as one by 31 does.  sign(x) * r cannot wrap: a right
+// shift by at least 1 leaves |r| <= 2^30.
 __device__ __forceinline__ int round_shift(int x, int s) {
+  const uint32_t ux = (uint32_t)x;
   if (s > 0) {
-    if (s > 40) return 0;  // |x| <= 2^31 rounds to 0
-    long long ax = x < 0 ? -(long long)x : (long long)x;
-    long long r = (ax + (1LL << (s - 1))) >> s;
-    return (int)(x < 0 ? -r : r);
+    const uint32_t ax = x < 0 ? 0u - ux : ux;
+    const uint32_t half = s > 32 ? 0u : 1u << (s - 1);
+    const int r = (int)(ax + half) >> (s < 31 ? s : 31);
+    return x < 0 ? -r : (x > 0 ? r : 0);
   }
-  int l = -s;
-  if (l >= 32) return 0;
-  return (int)((uint32_t)x << l);
+  const int l = -s;
+  return l >= 32 ? 0 : (int)(ux << l);
+}
+
+// a + b wrapped to int32, as the reference's int32 addition wraps.
+__device__ __forceinline__ int add32(int a, int b) {
+  return (int)((uint32_t)a + (uint32_t)b);
 }
 
 __device__ __forceinline__ int clamp8(int v) {
@@ -264,7 +275,7 @@ __device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
         const int col = n0 + 8 * a + 2 * t + (e & 1);
         if (m >= M || col >= s.cout) continue;
         const int r = m / s.cols, c = m - r * s.cols;
-        int v = round_shift(acc[a][e] + bias[col], s.shift);
+        int v = round_shift(add32(acc[a][e], bias[col]), s.shift);
         if (s.relu) v = max(v, 0);
         put(p, s, dst, m * s.ps + col, n, j, jw, r, c, ch0 + col, clamp8(v));
       }
@@ -306,7 +317,7 @@ __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
       if (sr >= 0 && sr < s.side_h && sc >= 0 && sc < s.side_w)
         b = p.side[i][(long long)n * s.side_sn + (long long)sr * s.side_sh
                       + (long long)sc * s.side_sw + ch0 + o];
-      v = round_shift(a, s.shift) + round_shift(b, s.s_side);
+      v = add32(round_shift(a, s.shift), round_shift(b, s.s_side));
       if (s.relu) v = max(v, 0);
       v = clamp8(v);
     }
@@ -652,7 +663,7 @@ horizontal_mma_kernel(const __grid_constant__ HorizontalParams p) {
         const int m = m0 + wm * 16 * MT + i * 16 + gq + 8 * (e >> 1);
         const int col = n0 + wn * 32 + j * 8 + 2 * tq + (e & 1);
         if (m >= M || col >= p.OC) continue;
-        int v = round_shift(acc[i][j][e] + p.b[col], p.shift[col]);
+        int v = round_shift(add32(acc[i][j][e], p.b[col]), p.shift[col]);
         if (p.relu[col]) v = max(v, 0);
         p.out[(long long)m * p.OC + col] = (int8_t)clamp8(v);
       }

@@ -152,8 +152,8 @@ def fused_chain_plain(x, weights, biases, sides, *, chain, oh, ow, oc):
                 t = int8_ops.sat8(int8_ops.rounded_div(s, cnt))
         else:
             _, _, s_main, s_side, relu_out = st[:5]
-            z = (int8_ops.round_shift(t, s_main)
-                 + int8_ops.round_shift(sides[si], s_side))
+            z = int8_ops.add32(int8_ops.round_shift(t, s_main),
+                               int8_ops.round_shift(sides[si], s_side))
             if relu_out:
                 z = z.clamp(min=0)
             t = int8_ops.sat8(z)
@@ -164,7 +164,7 @@ def fused_chain_plain(x, weights, biases, sides, *, chain, oh, ow, oc):
 def fused_horizontal_plain(x, w, b, shift_vec, relu_vec, *, stride, pad):
     """One conv over OC-stacked weights, then per-channel shift and ReLU."""
     acc = int8_ops.conv_acc(x, w, stride=tuple(stride), pad=tuple(pad))
-    y = int8_ops.round_shift(acc + b.to(torch.int32), shift_vec)
+    y = int8_ops.round_shift(int8_ops.add32(acc, b), shift_vec)
     y = torch.where(relu_vec != 0, y.clamp(min=0), y)
     return int8_ops.sat8(y)
 

@@ -23,8 +23,8 @@ def fused_conv_ref(x, w, b, *, stride, pad, shift, relu,
                              ceil_mode=False)
     if eltwise is not None:
         side, s_conv, s_side, relu_out = eltwise
-        acc = (int8_ops.round_shift(y, s_conv)
-               + int8_ops.round_shift(side, s_side))
+        acc = int8_ops.add32(int8_ops.round_shift(y, s_conv),
+                             int8_ops.round_shift(side, s_side))
         if relu_out:
             acc = acc.clamp(min=0)
         y = int8_ops.sat8(acc)

@@ -1,46 +1,104 @@
 """The runtime supporter's unit of ownership: one compiled model, served.
 
 Port of ``src/repro/runtime/session.py``.  A :class:`Session` binds one
-(graph, strategy, device model, quantization) tuple to an
-:class:`~repro_torch.core.executor.Int8Executor` on one ``torch.device``.
-The strategy is lowered in-process to a ``GroupProgram`` at construction.
+(graph, strategy, device model, quantization) tuple to:
+
+* the :class:`~repro_torch.asm.artifact.CompiledArtifact`, obtained through
+  a :class:`~repro_torch.asm.artifact.PlanCache` — the serving path compiles
+  once and every later construction is a dictionary hit;
+* an :class:`~repro_torch.core.executor.Int8Executor` over the artifact's
+  lowered ``GroupProgram`` on one ``torch.device``.
+
+The plan cache keys on the planning ``DeviceModel``, not on the
+``torch.device``: a CPU session and a CUDA session of one model share one
+artifact, and each executor owns its device.  ``from_artifact`` opens a
+saved DNNVM object file with no recompilation.
 
 ``run`` serves one request; ``run_batch`` stacks N queued requests into one
 batched launch (one kernel grid covers all N images — the executor's batch
 dimension is free); ``serve`` wraps the session in the dynamic-batching
 :class:`~repro_torch.runtime.server.Server`.
+
+Not ported yet: device profiles (``profile=`` raises; ROADMAP, Queue 1 item
+4), ``pipeline_report`` (item 2) and drift (item 5).
 """
 from __future__ import annotations
 
 import contextlib
+import warnings
 
 import torch
 
+# None -> None; a device profile raises until the tuner is ported
+from repro_torch.stages.stages import _resolve_profile
+
 
 class Session:
-    """Owns the lowered program and the executor for one compiled model."""
+    """Owns the compiled artifact and the executor for one compiled model."""
 
     def __init__(self, g, strategy, dev, qm, *, backend: str = "fused",
-                 device=None):
+                 device=None, cache=None, pin_input: bool | None = None,
+                 cache_max_entries: int | None = None, profile=None):
         """``dev`` is the planning device model the strategy was searched
         under; ``device`` is where the executor runs (None: CUDA, which
-        raises where CUDA is absent)."""
-        from repro_torch.core import lower
+        raises where CUDA is absent).  ``cache`` is the plan cache to
+        compile through (None: ``asm.PLAN_CACHE``); ``pin_input`` forwards
+        to the memory planner; ``cache_max_entries`` rebounds that cache."""
+        from repro_torch import asm
         from repro_torch.core.executor import Int8Executor
 
+        self.profile = _resolve_profile(profile)
+        self.cache = cache if cache is not None else asm.PLAN_CACHE
+        if cache_max_entries is not None:
+            self.cache.max_entries = cache_max_entries
+        self.artifact, self.cache_hit = self.cache.get_or_compile(
+            g, strategy, dev, qm=qm, pin_input=pin_input)
         self.graph, self.qm, self.device_model = g, qm, dev
-        self.program = lower.lower_strategy(g, strategy, qm)
         self.backend = backend
-        # "fused" dispatches this session's program; "ref" walks the
-        # strategy's groups node by node
-        self.executor = Int8Executor(
-            g, qm, strategy=self if backend == "fused" else strategy,
-            backend=backend, device=device)
+        # "fused" dispatches the artifact's stored program; "ref" walks its
+        # groups node by node
+        self.executor = Int8Executor(g, qm, strategy=self.artifact,
+                                     backend=backend, device=device)
         self.device = self.executor.device
         self.outputs = [n.name for n in g if not g.consumers(n.name)]
         self.n_runs = 0
         self.images_served = 0
         self._launch_hook = None        # optional pre-launch hook
+
+    @classmethod
+    def from_artifact(cls, art, *, backend: str = "fused", cache=None,
+                      device=None, profile=None,
+                      cache_max_entries: int | None = None) -> "Session":
+        """Open a session on a loaded DNNVM object file — no recompilation:
+        the artifact is seeded into the plan cache under its own key.
+
+        An artifact planned under a device profile warns: this package has
+        no profiles yet, so the session runs it under the analytic model."""
+        from repro_torch import asm
+        from repro_torch.hw import get_device
+
+        resolved = _resolve_profile(profile)
+        if art.profile_hash is not None:
+            warnings.warn(
+                f"artifact was planned under device profile "
+                f"{art.profile_hash} ({art.meta.get('profile_name') or 'n/a'})"
+                f" but is being loaded under analytic — its strategy was "
+                f"tuned for measured rates this session may not match; "
+                f"recompile under the current profile to re-tune",
+                stacklevel=2)
+        g = art.rebuild_graph()
+        qm = art.quantized_model()
+        dev = get_device(art.device)
+        cache = cache if cache is not None else asm.PLAN_CACHE
+        cache.put(g, art, dev, art, qm=qm, profile=resolved)
+        return cls(g, art, dev, qm, backend=backend, device=device,
+                   cache=cache, cache_max_entries=cache_max_entries,
+                   profile=resolved)
+
+    @property
+    def program(self):
+        """The lowered ``GroupProgram`` the executor dispatches."""
+        return self.artifact.program
 
     # ------------------------------------------------------------- execution
     def _stack(self, xs, pad_to: int | None = None):
@@ -71,6 +129,22 @@ class Session:
         with ctx:
             return self.executor(x)
 
+    def tile_summary(self) -> list[dict]:
+        """Launched tile shape per lowered unit.  ``tile`` is the searched
+        (t_h, t_w, t_oc), or None when the launcher's own shapes run."""
+        from repro_torch.core import lower
+        if self.artifact.program is None:
+            return []
+        out = []
+        for item in self.artifact.program.items:
+            if isinstance(item, lower.RefFallback):
+                out.append({"nodes": "+".join(item.nodes),
+                            "kind": "fallback", "tile": None})
+            else:
+                out.append({"nodes": "+".join(item.nodes), "kind": item.kind,
+                            "tile": list(item.tile) if item.tile else None})
+        return out
+
     def run(self, x) -> dict:
         """One request; accepts (H, W, C) or (1, H, W, C) int8."""
         x = torch.as_tensor(x)
@@ -94,6 +168,23 @@ class Session:
         self.images_served += n
         return [{k: v[i:i + 1] for k, v in out.items()} for i in range(n)]
 
+    # --------------------------------------------------------------- explain
+    def explain(self, *, render: bool = False):
+        """This session's compile-decision provenance: the artifact's
+        ``CompileReport`` (``repro_torch.explain``), or with
+        ``render=True`` its text rendering."""
+        from repro_torch.explain import render_report, report_of
+        from repro_torch.obs.events import EVENTS
+
+        rep = dict(report_of(self.artifact))
+        EVENTS.emit("explain.report",
+                    message=f"explain {rep['model']} (session)",
+                    model=rep["model"], device=rep["device"],
+                    degraded=rep.get("degraded", False), n_drift_units=0)
+        if render:
+            return render_report(rep)
+        return rep
+
     # -------------------------------------------------------------- serving
     def serve(self, **kw):
         from repro_torch.runtime.server import Server
@@ -102,6 +193,11 @@ class Session:
     def stats(self) -> dict:
         return {"n_runs": self.n_runs, "images_served": self.images_served,
                 "backend": self.backend, "device": str(self.device),
-                "fused_coverage": self.program.coverage,
+                "cache_hit": self.cache_hit,
+                "cache_hits": self.cache.hits,
+                "cache_misses": self.cache.misses,
+                "fused_coverage": self.artifact.fused_coverage,
                 "n_launches": self.program.meta["n_launches"],
-                "n_fallbacks": self.program.meta["n_fallbacks"]}
+                "n_fallbacks": self.program.meta["n_fallbacks"],
+                "sim_cycles_per_image": self.artifact.sim_total_cycles,
+                "pin_input": self.artifact.pin_input}

@@ -10,8 +10,9 @@ import torch
 
 from repro_torch.core import executor, lower, quantize
 from repro_torch.kernels.conv_fused import ops
-from torch_common import (GOOGLENET_HORIZONTAL, HAND_CHAINS,
-                          RAGGED_HORIZONTAL, build_graph, hand_chain_args,
+from torch_common import (EXTREME_SHIFTS, GOOGLENET_HORIZONTAL, HAND_CHAINS,
+                          RAGGED_HORIZONTAL, build_graph, extreme_chain_args,
+                          extreme_horizontal_args, hand_chain_args,
                           horizontal_args, strategy)
 
 pytestmark = pytest.mark.cuda
@@ -127,6 +128,70 @@ def test_fused_executor_matches_ref_on_card(dev, model, img):
     assert ops.LAUNCHES["fused_chain"] + ops.LAUNCHES["fused_horizontal"] \
         == prog.meta["n_launches"]
     assert not any(ops.PLAIN_CALLS.values())
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("shift", EXTREME_SHIFTS)
+def test_conv_kernels_match_plain_at_int32_extremes(dev, shift):
+    """round_shift where the reference's int32 arithmetic wraps: biases
+    within 2^20 of +-2^31 and shifts past 31, in the chain kernel's conv
+    and elt stages and in the horizontal kernel (shifts 1, 31, 32, 33 and
+    40 on its siblings)."""
+    chain, x, w, b, sides, oh, ow, oc = extreme_chain_args(
+        shift, np.random.default_rng(shift))
+    args = (torch.as_tensor(x, device=dev),
+            [torch.as_tensor(t, device=dev) for t in w],
+            [torch.as_tensor(t, device=dev) for t in b],
+            [torch.as_tensor(t, device=dev) for t in sides])
+    want = ops.fused_chain_plain(*args, chain=chain, oh=oh, ow=ow, oc=oc)
+    for tile in (None, (1, 1, oc), (3, 2, oc)):
+        got = ops.fused_chain(*args, chain=chain, oh=oh, ow=ow, oc=oc,
+                              tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), tile
+    for n in (1, 2):
+        xh, wh, bh, sh, rl, stride, pad = extreme_horizontal_args(
+            np.random.default_rng(shift + n), n)
+        a = [torch.as_tensor(t, device=dev) for t in (xh, wh, bh, sh, rl)]
+        got = ops.fused_horizontal(*a, stride=stride, pad=pad)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.fused_horizontal_plain(
+            *a, stride=stride, pad=pad)), n
+
+
+@pytest.mark.parametrize("model,img", [("toy", 16), ("googlenet", 32)])
+def test_artifact_round_trip_on_card(dev, model, img, tmp_path):
+    """Compile, save, load and run the loaded artifact's stored program
+    through the kernels: bit-equal to the in-memory artifact and to the
+    unfused oracle, all on the card, and a reopened Session serves it with
+    no recompile."""
+    from repro_torch import asm
+    from repro_torch.cnn import init_params
+    from repro_torch.core import validate
+    from repro_torch.hw import ZU2
+    from repro_torch.runtime import Session
+    g = build_graph("repro_torch", model, img)
+    x = np.random.default_rng(0).standard_normal(
+        g.shape("data")).astype(np.float32)
+    qm = quantize.calibrate(g, init_params(g), x, lambda g_, p_, x_:
+                            executor.run_float(g_, p_, x_, device=dev))
+    xq = quantize.quantize_to(x, qm.f_a["data"])
+    s = strategy("repro_torch", g)
+    ops.reset_counts()
+    rep = validate.artifact_round_trip(g, qm, xq, s, ZU2,
+                                       str(tmp_path / "m.npz"), device=dev)
+    assert rep.bit_exact, rep.max_abs_diff
+    assert ops.LAUNCHES["fused_chain"] > 0 and not any(
+        ops.PLAIN_CALLS.values())
+    cache = asm.PlanCache()
+    sess = Session(g, s, ZU2, qm, device=dev, cache=cache)
+    asm.save_artifact(sess.artifact, str(tmp_path / "s.npz"))
+    re = Session.from_artifact(asm.load_artifact(str(tmp_path / "s.npz")),
+                               device=dev, cache=cache)
+    assert re.cache_hit and cache.misses == 1
+    assert re.executor.program is re.artifact.program
+    want, got = sess.run(xq), re.run(xq)
     for k in want:
         assert torch.equal(got[k], want[k]), k
 

@@ -20,12 +20,18 @@ def _env(**extra):
     return dict(os.environ, PYTHONPATH=str(ROOT / "src"), **extra)
 
 
-def test_cpu_main_path_never_loads_jax_or_reference():
+def test_cpu_main_path_never_loads_jax_or_reference(tmp_path):
+    """The main path on the CPU: compile through the plan cache, save and
+    reload the object file, reopen it with ``Session.from_artifact``, run,
+    explain, and compile through the staged pipeline.  The lazy imports
+    inside the copied modules run here too, so one left pointing at the
+    reference would load it."""
     code = """
 import sys
 import numpy as np
 from functools import partial
 import repro_torch
+from repro_torch import asm, stages
 from repro_torch.cnn import build, init_params
 from repro_torch.core import executor, lower, pathsearch, quantize
 from repro_torch.hw import ZU2
@@ -36,16 +42,28 @@ x = np.random.default_rng(0).standard_normal(g.shape("data")).astype("float32")
 qm = quantize.calibrate(g, p, x, partial(executor.run_float, device="cpu"))
 s = pathsearch.search(g, ZU2)
 prog = lower.lower_strategy(g, s, qm)
-out = Session(g, s, ZU2, qm, device="cpu").run(
-    quantize.quantize_to(x, qm.f_a["data"]))
+xq = quantize.quantize_to(x, qm.f_a["data"])
+sess = Session(g, s, ZU2, qm, device="cpu")
+out = sess.run(xq)
+asm.save_artifact(sess.artifact, sys.argv[1])
+reopened = Session.from_artifact(asm.load_artifact(sys.argv[1]),
+                                 device="cpu")
+again = reopened.run(xq)
+text = reopened.explain(render=True)
+co = stages.compile_model(g, qm, ZU2, strategy=s).session(device="cpu")
+same = all(bool((again[k] == out[k]).all()) and
+           bool((co.run(xq)[k] == out[k]).all()) for k in out)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad, prog.meta["kinds"])
+print("REOPENED", sess.cache_hit, reopened.cache_hit, same, bool(text))
 """
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "m.npz")], capture_output=True,
                          text=True, env=_env(), timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("BAD [] {'chain'"), res.stdout
+    assert res.stdout.splitlines()[1] == "REOPENED False True True True"
 
 
 def test_cpu_lm_path_never_loads_jax_or_reference():

@@ -6,7 +6,11 @@ import pytest
 import torch
 
 from repro.core import int8_ops as ref_ops
+from repro.kernels.conv_fused.ref import fused_conv_ref
 from repro_torch.core import int8_ops as ops
+from repro_torch.kernels.conv_fused import ops as conv_ops
+from torch_common import (EXTREME_SHIFTS, extreme_bias, extreme_chain_args,
+                          extreme_horizontal_args)
 
 
 def _i8(rng, shape):
@@ -127,3 +131,99 @@ def test_global_avgpool_eltwise_concat_upsample_reorg():
     _eq(ops.reorg(tx, 2), ref_ops.reorg(jx, 2))
     _eq(ops.sat8(torch.as_tensor(np.arange(-300, 300, 7, dtype=np.int32))),
         ref_ops.sat8(jnp.arange(-300, 300, 7, dtype=jnp.int32)))
+
+
+# ------------------------------------------------------ int32 extremes
+EXTREMES = np.array([2**31 - 1, -2**31, 2**31 - 2, -2**31 + 1, 2**30,
+                     -2**30, 1, -1, 5, -5, 0], np.int32)
+WIDE_SHIFTS = [-40, -32, -31, -8, -1, 0, 1, 12, 30, 31, 32, 33, 40, 60]
+
+
+@pytest.mark.parametrize("shift", WIDE_SHIFTS)
+def test_round_shift_requantize_at_int32_extremes(shift):
+    """Scalar shifts, where the reference's int32 arithmetic wraps: |-2^31|,
+    |x| + 2^(s-1), shifts by 32 or more."""
+    acc = np.concatenate([EXTREMES, np.random.default_rng(shift + 99)
+                          .integers(-2**31, 2**31, 64).astype(np.int32)])
+    _eq(ops.round_shift(torch.as_tensor(acc), shift),
+        ref_ops.round_shift(jnp.asarray(acc), shift))
+    for relu in (False, True):
+        _eq(ops.requantize(torch.as_tensor(acc), shift, relu),
+            ref_ops.requantize(jnp.asarray(acc), shift, relu))
+
+
+def test_round_shift_per_channel_at_int32_extremes():
+    """A per-channel shift vector over -60..60 against every extreme."""
+    s = np.arange(-60, 61, dtype=np.int32)
+    acc = np.concatenate([np.repeat(EXTREMES[:, None], s.size, 1),
+                          np.random.default_rng(7).integers(
+                              -2**31, 2**31, (32, s.size))]).astype(np.int32)
+    _eq(ops.round_shift(torch.as_tensor(acc), torch.as_tensor(s)),
+        ref_ops.round_shift(jnp.asarray(acc), jnp.asarray(s)))
+
+
+@pytest.mark.parametrize("f_from", [3 + 40, 3 + 33, 3 - 31, 3 - 40])
+def test_rescale_eltwise_concat_at_wide_shifts(f_from):
+    rng = np.random.default_rng(f_from + 50)
+    x, y = _i8(rng, (2, 4, 4, 3)), _i8(rng, (2, 4, 4, 3))
+    tx, ty = torch.as_tensor(x), torch.as_tensor(y)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    _eq(ops.rescale(tx, f_from, 3), ref_ops.rescale(jx, f_from, 3))
+    for relu in (False, True):
+        _eq(ops.eltwise_add([tx, ty], (f_from, f_from - 1), 3, relu),
+            ref_ops.eltwise_add([jx, jy], (f_from, f_from - 1), 3, relu))
+    _eq(ops.concat([tx, ty], (f_from, 3), 3),
+        ref_ops.concat([jx, jy], (f_from, 3), 3))
+
+
+@pytest.mark.parametrize("shift", EXTREME_SHIFTS + (60,))
+def test_conv_and_fc_with_bias_near_int32_extremes(shift):
+    rng = np.random.default_rng(shift)
+    x, wt = _i8(rng, (2, 7, 6, 8)), _i8(rng, (3, 3, 8, 10))
+    b = extreme_bias(rng, 10)
+    for relu in (False, True):
+        kw = dict(stride=(1, 1), pad=(1, 1), shift=shift, relu=relu)
+        _eq(ops.conv2d(torch.as_tensor(x), torch.as_tensor(wt),
+                       torch.as_tensor(b), **kw),
+            ref_ops.conv2d(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b),
+                           **kw))
+    xf, wf = _i8(rng, (3, 2, 2, 5)), _i8(rng, (20, 6))
+    bf = extreme_bias(rng, 6)
+    _eq(ops.fc(torch.as_tensor(xf), torch.as_tensor(wf), torch.as_tensor(bf),
+               shift=shift),
+        ref_ops.fc(jnp.asarray(xf), jnp.asarray(wf), jnp.asarray(bf),
+                   shift=shift))
+
+
+@pytest.mark.parametrize("shift", EXTREME_SHIFTS + (60,))
+def test_chain_plain_at_int32_extremes_matches_reference(shift):
+    """The chain kernel's plain version (conv with a bias near the int32
+    extremes, then an elt stage at shifts +-shift) against the reference's
+    unfused composition of the same ops."""
+    chain, x, w, b, sides, oh, ow, oc = extreme_chain_args(
+        shift, np.random.default_rng(shift))
+    got = conv_ops.fused_chain_plain(
+        torch.as_tensor(x), [torch.as_tensor(w[0])], [torch.as_tensor(b[0])],
+        [torch.as_tensor(sides[0])], chain=chain, oh=oh, ow=ow, oc=oc)
+    elt = chain[1]
+    want = fused_conv_ref(
+        jnp.asarray(x), jnp.asarray(w[0]), jnp.asarray(b[0]), stride=(1, 1),
+        pad=(1, 1), shift=shift, relu=False,
+        eltwise=(jnp.asarray(sides[0]), elt[2], elt[3], elt[4]))
+    _eq(got, want)
+
+
+def test_horizontal_plain_at_int32_extremes_matches_reference():
+    """OC-stacked siblings at shifts 1, 31, 32, 33 and 40, biases near the
+    int32 extremes: the plain version against each sibling's reference
+    conv2d, as the reference's unfused executor runs them."""
+    x, w, b, shift, relu, stride, pad = extreme_horizontal_args(
+        np.random.default_rng(5))
+    got = conv_ops.fused_horizontal_plain(
+        *map(torch.as_tensor, (x, w, b, shift, relu)), stride=stride, pad=pad)
+    k = w.shape[-1] // len(EXTREME_SHIFTS)
+    want = np.concatenate([np.asarray(ref_ops.conv2d(
+        jnp.asarray(x), jnp.asarray(w[..., i:i + k]), jnp.asarray(b[i:i + k]),
+        stride=stride, pad=pad, shift=int(shift[i]), relu=bool(relu[i])))
+        for i in range(0, w.shape[-1], k)], -1)
+    _eq(got, want)

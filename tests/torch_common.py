@@ -139,3 +139,38 @@ def horizontal_args(shape, n, rng):
             rng.integers(-3000, 3000, oc).astype(np.int32),
             rng.integers(-1, 12, oc).astype(np.int32),
             rng.integers(0, 2, oc).astype(np.int32), (s, s), (p, p))
+
+
+# round_shift where the reference's int32 arithmetic wraps: shifts from 1
+# past 32, on accumulators near the int32 extremes (biases within 2^20 of
+# -2^31 and 2^31 - 1).
+EXTREME_SHIFTS = (1, 31, 32, 33, 40)
+
+
+def extreme_bias(rng, n):
+    off = rng.integers(0, 1 << 20, n)
+    return np.where(np.arange(n) % 2 == 0, -(1 << 31) + off,
+                    (1 << 31) - 1 - off).astype(np.int32)
+
+
+def extreme_chain_args(shift, rng):
+    """A conv (3x3, padded, bias near the int32 extremes, requantized by
+    ``shift``) and an elt stage (main shift ``shift``, side shift
+    ``-shift``) at batch 2: (chain, x, weights, biases, sides, oh, ow, oc)."""
+    h, w, c, oc = 9, 7, 8, 12
+    chain = (("conv", "c", 3, 3, 1, 1, 1, 1, 1, 1, shift, False, h, w),
+             ("elt", "e", shift, -shift, shift % 2 == 0, h, w))
+    return (chain, i8(rng, (2, h, w, c)), [i8(rng, (3, 3, c, oc))],
+            [extreme_bias(rng, oc)], [i8(rng, (2, h, w, oc))], h, w, oc)
+
+
+def extreme_horizontal_args(rng, n=2):
+    """One OC-stacked 3x3 launch whose siblings (4 channels each) carry the
+    shifts of ``EXTREME_SHIFTS`` and biases near the int32 extremes, ReLU
+    on every other sibling: x, w, b, shift and ReLU vectors, stride, pad."""
+    h, w, ic, k = 8, 6, 16, 4
+    oc = k * len(EXTREME_SHIFTS)
+    shift = np.repeat(np.asarray(EXTREME_SHIFTS, np.int32), k)
+    relu = np.repeat(np.arange(len(EXTREME_SHIFTS)) % 2, k).astype(np.int32)
+    return (i8(rng, (n, h, w, ic)), i8(rng, (3, 3, ic, oc)),
+            extreme_bias(rng, oc), shift, relu, (1, 1), (1, 1))
