@@ -86,6 +86,20 @@ Phases (any failure raises and the script exits non-zero):
    against plain prefill at 1e-4 and teacher-forced decode against prefill
    at 1e-3, and the bf16 prefill's distance to fp32 held as at full depth,
    the plain scan's within a quarter of the largest |logit|.
+8. The tune phase, run after phase 3 on its GoogLeNet-224: ``calibrate``
+   under ZU2 through a ``MeasurementHarness`` on the card (the default
+   candidate groups and stacked launches; CUDA-event device time), the
+   profile saved in a ``ProfileCache`` under the output directory and
+   reloaded by name with an equal hash; ``pathsearch.search`` under the
+   ``CalibratedEvaluator`` beside the analytic strategy;
+   ``search_tile_shapes`` under ``hw.H100`` (top 3), every measured
+   candidate run through ``run_launch`` and equal to the plain version;
+   three sessions of the calibrated strategy (the search's records, every
+   chain forced to its fastest non-default candidate, none), each
+   ``bit_exact`` with its applied records counted and no plain call, their
+   ``Session.run`` p50 in turns and ``chain_kernel`` device ms per image in
+   a profiled run; ``Lowered.retune`` with stage-cache counters; and
+   ``pipeline_report(8, ddr_slots=None)`` in the ZU2 model's cycles.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -591,6 +605,7 @@ def profile_device(fn, n: int, trace_name: str) -> dict:
     busy, end = 0.0, dev[0][0]
     by_name: dict = {}
     launches: dict = {}
+    ms_by_base: dict = {}
     for t0, t1, name, cat in dev:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
@@ -599,6 +614,7 @@ def profile_device(fn, n: int, trace_name: str) -> dict:
         if cat == "kernel":
             base = kernel_name(name)
             launches[base] = launches.get(base, 0) + 1
+            ms_by_base[base] = ms_by_base.get(base, 0.0) + (t1 - t0) / 1e3 / n
     span = dev[-1][1] - dev[0][0]
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     traced = {e.get("args", {}).get("correlation") for e in events
@@ -612,6 +628,7 @@ def profile_device(fn, n: int, trace_name: str) -> dict:
             "device_events_per_call": len(dev) / n,
             "device_ms_per_call_by_kernel": top,
             "device_launches_by_kernel": launches,
+            "device_ms_per_call_by_kernel_name": ms_by_base,
             "trace_launches_without_kernel": lost}
 
 
@@ -799,6 +816,228 @@ def slice_phase(models, dev, card: str) -> dict:
            "artifact": art, **prof}
     log(f"GoogLeNet-224 serving on {card}: " + json.dumps(res))
     return res
+
+
+# ----------------------------------------------------------------- phase 8
+def _counts(reg) -> dict:
+    return {st: (reg.get(f"stages.{st}.misses").value
+                 if reg.get(f"stages.{st}.misses") else 0.0)
+            for st in ("wrapped", "lowered", "planned", "compiled")}
+
+
+def check_candidates(m, prog, provenance, gen, dev) -> int:
+    """Every tile the search measured, run through ``run_launch`` on the
+    card on random inputs, equals the chain's plain version bit for bit."""
+    import dataclasses
+
+    from repro_torch.core import lower
+    from repro_torch.kernels.conv_fused import ops
+
+    by_key = {lower.tile_key(it.nodes): it for it in prog.launches()}
+    n = 0
+    for u in provenance:
+        if u["kind"] != "chain":
+            continue
+        item = dataclasses.replace(by_key[u["key"]], tile=())
+        prep = ops.prepare_launch(item, m["qm"], dev)
+        args, kw = chain_args(item, m["g"], prep, gen, dev)
+        env = dict(zip((item.in_name,) + tuple(item.sides),
+                       (args[0],) + tuple(args[3])))
+        want = ops.fused_chain_plain(*args, **kw)
+        for c in u["candidates"]:
+            it = dataclasses.replace(
+                item, tile=() if c["default"] else tuple(c["shape"]))
+            check_equal(ops.run_launch(it, env, prepared=prep)[it.out_name],
+                        want, f"tile candidate {c['shape']} of {u['key']}")
+            n += 1
+    return n
+
+
+def tune_phase(m, dev, card: str) -> dict:
+    """The measured compile loop on GoogLeNet-224 (phase 8)."""
+    import copy
+
+    from repro_torch import stages, tune
+    from repro_torch.core import lower, pathsearch, quantize, validate
+    from repro_torch.hw import H100, ZU2
+    from repro_torch.kernels.conv_fused import ops
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.runtime import Session
+
+    t_phase = time.perf_counter()
+    g, qm = m["g"], m["qm"]
+    # 1. calibrate: the default candidate groups and stacked rows
+    cal, cal_s = timed(lambda: tune.calibrate(
+        g, qm, ZU2, harness=tune.MeasurementHarness(g, qm, ZU2, device=dev)))
+    prof, rep = cal.profile, cal.report
+    cache = tune.ProfileCache(os.path.join(OUT, "profiles"))
+    cache.put(prof)
+    again = tune.resolve_profile(prof.name, cache=cache)
+    if again.hash() != prof.hash():
+        raise AssertionError(f"profile {prof.name} reloaded with hash "
+                             f"{again.hash()}, saved {prof.hash()}")
+    with open(os.path.join(OUT, "tune_calibration.json"), "w") as f:
+        json.dump({"profile": prof.to_json(), "report": rep}, f, indent=1)
+    eff = prof.effective_summary(H100)
+    log(f"calibrate on {card}: {rep['n_samples']} rows "
+        f"({rep['stacked']['n_samples']} stacked launches), deviation "
+        f"{rep['deviation']} (stacked {rep['stacked']['deviation']}; the "
+        f"paper's band is 5-10%), form {prof.combine}, {rep['n_skipped']} "
+        f"skipped, {cal_s:.1f} s; profile {prof.name} {prof.hash()} "
+        f"reloaded from the cache by name with an equal hash; effective "
+        f"rates at the H100 clock: " + json.dumps(eff))
+
+    # 2. the path search under the calibrated evaluator
+    s_cal = pathsearch.search(g, ZU2, evaluator=tune.CalibratedEvaluator(
+        g, ZU2, prof))
+    plans = {}
+    for name, s in (("analytic", m["strategy"]), ("calibrated", s_cal)):
+        meta = lower.lower_strategy(g, s, qm).meta
+        plans[name] = {"groups": len(s.groups),
+                       "horizontals": len(s.horizontal),
+                       "launches": meta["n_launches"],
+                       "fallbacks": meta["n_fallbacks"],
+                       "fused_coverage": meta["coverage"]}
+    log("pathsearch.search(ZU2) analytic vs calibrated: " + json.dumps(plans))
+    s_plain = copy.copy(s_cal)              # same partition, no tile records
+    s_plain.meta = {k: v for k, v in s_cal.meta.items()
+                    if not k.startswith("tile_")}
+
+    # 3. the tile search on the card, candidates under the H100 model
+    tsr, ts_s = timed(lambda: tune.search_tile_shapes(
+        g, qm, H100, s_cal,
+        harness=tune.MeasurementHarness(g, qm, H100, device=dev), top_k=3))
+    prog = lower.lower_strategy(g, s_cal, qm)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    n_cands = check_candidates(m, prog, tsr.provenance, gen, dev)
+    units, chain_us = [], {"default": 0.0, "tuned": 0.0}
+    ratios = []              # each unit's fastest other candidate / default
+    for u in tsr.provenance:
+        if u["kind"] != "chain":
+            continue
+        rows = {tuple(c["shape"]): c["measured"] for c in u["candidates"]}
+        base = rows[tuple(u["default"])]
+        others = [c["measured"] for c in u["candidates"] if not c["default"]]
+        if others:
+            ratios.append(min(others) / base)
+        win = rows[tuple(u["chosen"])] if u["chosen"] else base
+        chain_us["default"] += 1e6 * base
+        chain_us["tuned"] += 1e6 * win
+        if u["chosen"]:
+            units.append({"key": u["key"], "default": u["default"],
+                          "default_us": 1e6 * base, "chosen": u["chosen"],
+                          "chosen_us": 1e6 * win})
+    n_dropped = sum(len(u["dropped"]) for u in tsr.provenance)
+    with open(os.path.join(OUT, "tune_tiles.json"), "w") as f:
+        json.dump(tsr.to_json(), f, indent=1)
+    log(f"tile search on {card}: {tsr.n_units} units, {tsr.n_tuned} tuned, "
+        f"{n_dropped} candidates the card cannot launch (reasons in "
+        f"tune_tiles.json), {n_cands} measured candidates == plain, "
+        f"{ts_s:.1f} s ({1e3 * ts_s / (12 * n_cands):.2f} ms per sample of "
+        f"12 passes); chain device us per image (the search's own "
+        f"samples): default {chain_us['default']:.2f}, tuned "
+        f"{chain_us['tuned']:.2f}; fastest other candidate / default per "
+        f"unit: min {min(ratios):.4f}, median {float(np.median(ratios)):.4f}"
+        f", max {max(ratios):.4f} over {len(ratios)} units; tuned units: "
+        + json.dumps(units))
+
+    # 4. the sessions, each its own path: the search's winners ("tuned"),
+    # every chain at its fastest measured non-default candidate ("forced":
+    # tile records the card executes even where none wins), and none
+    s_forced = copy.copy(s_plain)
+    s_forced.meta = dict(s_plain.meta, tile_shapes={
+        u["key"]: min((c for c in u["candidates"] if not c["default"]),
+                      key=lambda c: c["measured"])["shape"]
+        for u in tsr.provenance
+        if any(not c["default"] for c in u["candidates"])})
+    rng = np.random.default_rng(SEED + 6)
+    imgs = [quantize.quantize_to(rng.standard_normal(g.shape("data")[1:]),
+                                 qm.f_a["data"]) for _ in range(8)]
+    xq = quantize.quantize_to(m["x"], qm.f_a["data"])
+    sessions, paths = {}, {}
+    for name, strat in (("untuned", s_plain), ("tuned", s_cal),
+                        ("forced", s_forced)):
+        records = sum(1 for it in lower.lower_strategy(g, strat,
+                                                       qm).launches()
+                      if it.tile)
+        ops.reset_counts()                   # ---- this path starts here
+        sess = Session(g, strat, ZU2, qm, device=dev, profile=prof)
+        outs = [sess.run(x) for x in imgs]
+        torch.cuda.synchronize()
+        launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        applied = ops.TILE_RECORDS["applied"]   # ---- this path ends here
+        if applied != records * len(imgs) or any(plain.values()):
+            raise AssertionError(f"{name} session: {applied} tile records "
+                                 f"applied over {len(imgs)} images for "
+                                 f"{records} records, plain calls {plain}")
+        if not validate.bit_exact(g, qm, xq, strat, device=dev):
+            raise AssertionError(f"{name} GoogLeNet-224 fused != ref on the "
+                                 f"card")
+        if name != "untuned":
+            for i, (x, got) in enumerate(zip(imgs, outs)):
+                outputs_equal(got, sessions["untuned"].run(x),
+                              f"{name} vs untuned image {i}")
+        sessions[name] = sess
+        paths[name] = {"records": records, "applied": applied,
+                       "launches": launches}
+    if paths["tuned"]["records"] != tsr.n_tuned:
+        raise AssertionError(f"{tsr.n_tuned} tuned units, "
+                             f"{paths['tuned']['records']} records")
+    sess = sessions["tuned"]
+    p50 = run_p50_ms(sessions, imgs)
+    chain_ms = {}
+    for name, ss in sessions.items():
+        it = itertools.cycle(imgs)
+        pr = profile_device(lambda: ss.run(next(it)), 5,
+                            f"googlenet_{name}_trace.json")
+        chain_ms[name] = pr.get("device_ms_per_call_by_kernel_name",
+                                {}).get("chain_kernel")
+    applied = paths["tuned"]["applied"]
+    log(f"GoogLeNet-224 sessions on {card}, bit_exact each, per path over "
+        f"{len(imgs)} images: " + json.dumps(paths) + "; Session.run p50 ms "
+        "(host clock, turns) " + json.dumps(p50) + "; chain_kernel device "
+        "ms per image in a profiled run " + json.dumps(chain_ms))
+
+    # Lowered.retune reruns only the tile search
+    reg = MetricsRegistry()
+    sc = stages.StageCache(registry=reg)
+    lo = stages.wrap(g, qm, ZU2, cache=sc).lower(strategy=s_plain,
+                                                 profile=prof)
+    before = _counts(reg)
+    lo2 = lo.retune(profile=prof)
+    after = _counts(reg)
+    if (after["wrapped"] != before["wrapped"]
+            or after["lowered"] != before["lowered"] + 1
+            or [list(x) for x in lo2.strategy.groups]
+            != [list(x) for x in lo.strategy.groups]):
+        raise AssertionError(f"Lowered.retune: stage misses {before} -> "
+                             f"{after}")
+    log(f"Lowered.retune: stage-cache misses {before} -> {after} (one new "
+        f"lowering, no search, no wrap), "
+        f"{len(lo2.strategy.meta['tile_shapes'])} profile-predicted tiles")
+
+    # 5. the cross-request schedule view (the ZU2 model's cycles)
+    pr = sess.pipeline_report(8, ddr_slots=None)
+    sched = {"ddr_slots": pr.ddr_slots, "source": pr.ddr_slots_source,
+             "makespan_cycles": pr.total_cycles,
+             "single_request_cycles": pr.single_request_cycles,
+             "modeled_speedup": pr.modeled_speedup,
+             "bottleneck": pr.bottleneck, "utilization": pr.utilization()}
+    log("pipeline_report(8) of the tuned session, ZU2-model cycles (the "
+        "FPGA model's, not the card's): " + json.dumps(sched))
+    secs = time.perf_counter() - t_phase
+    log(f"tune phase took {secs:.1f} s")
+    return {"rows": rep["n_samples"], "deviation": rep["deviation"],
+            "stacked_deviation": rep["stacked"]["deviation"],
+            "profile_hash": prof.hash(), "plans": plans,
+            "n_units": tsr.n_units, "n_tuned": tsr.n_tuned,
+            "candidates_checked": n_cands, "chain_us_search": chain_us,
+            "candidate_ratio": {"min": min(ratios), "max": max(ratios),
+                                "median": float(np.median(ratios))},
+            "paths": paths,
+            "tile_records_applied": applied, "run_p50_ms": p50,
+            "chain_ms_per_image": chain_ms, "schedule": sched,
+            "seconds": secs}
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1432,6 +1671,7 @@ def main() -> int:
     checked = kernel_phase(models, dev)
     timing = timing_phase(models["googlenet"], dev)
     served = slice_phase(models, dev, card)
+    tuned = tune_phase(models["googlenet"], dev, card)
     del models
     torch.cuda.empty_cache()
     flash_errs = flash_kernel_phase(dev)
@@ -1468,6 +1708,16 @@ def main() -> int:
             "bound_by": ("bytes" if t["bound_bytes_ms"] >= t["bound_ops_ms"]
                          else "operations"),
             "library_ms": t["library_ms"]})
+    kernels[0].update({
+        "tuned_ms_per_image": tuned["chain_ms_per_image"]["tuned"],
+        "untuned_ms_per_image": tuned["chain_ms_per_image"]["untuned"],
+        "tuned_vs_untuned": "chain_kernel device ms per GoogLeNet-224 image "
+                            "in a profiled Session.run of the calibrated "
+                            "strategy: with the tile search's records, "
+                            "without, and forced to each chain's fastest "
+                            "non-default candidate",
+        "forced_ms_per_image": tuned["chain_ms_per_image"]["forced"],
+        "tuned_launches": tuned["tile_records_applied"]})
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "kernels": ["flash_wgmma_kernel (bf16/fp16, d 64 and 128)",
@@ -1505,6 +1755,7 @@ def main() -> int:
                          "bound_ms": scan_t[arch]["bound_ms"]}
                   for arch in recurrent}})
     checked["artifact"] = served["artifact"]
+    checked["tune"] = tuned
     checked["flash_max_abs_err"] = flash_errs
     checked["ssm_scan_err"] = scan_errs
     print(json.dumps({"kernels": kernels, "checked": checked,

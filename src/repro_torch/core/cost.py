@@ -1,4 +1,4 @@
-# Copied from src/repro/core/cost.py; imports point at repro_torch.
+# Copied from src/repro/core/cost.py; imports point at repro_torch; OnBoardEvaluator runs on torch.
 """Fused-operation cost evaluation (paper §5.1, Table 2).
 
 The paper evaluates fused-op cost three ways: on-board (<1 s, 0% deviation),
@@ -14,9 +14,8 @@ path search (the role the on-board measurement plays in the paper):
   * ``ModelEvaluator``     — least-squares model over (MACs, DRAM bytes,
     misc elems, tiles) features, fitted against the simulator; reproduces the
     paper's 5–10% deviation band (EXPERIMENTS.md §Repro).
-
-``OnBoardEvaluator`` (wall-clock of the executor) is left out of this copy:
-it returns with the port's tuner.
+  * ``OnBoardEvaluator``   — wall-clock of the port's per-node int8 (or
+    float) path for a group on a ``torch.device`` (None: CUDA).
 """
 from __future__ import annotations
 
@@ -198,3 +197,31 @@ class ModelEvaluator:
             return INFEASIBLE
         return float(np.dot(self._features(group), self.coef))
 
+
+class OnBoardEvaluator:
+    """Wall-clock the executor for a group (method 1) on ``device``.
+
+    Built lazily to avoid importing the executor at planner time."""
+
+    def __init__(self, g: XGraph, params, repeats: int = 3, device=None):
+        self.g, self.params, self.repeats = g, params, repeats
+        self.device = device
+
+    def __call__(self, group: list[str]) -> float:
+        import time
+
+        import torch
+
+        from repro_torch.core import executor
+
+        fn, inputs = executor.build_group_callable(self.g, group, self.params,
+                                                   device=self.device)
+        sync = (torch.cuda.synchronize if inputs and inputs[0].is_cuda
+                else (lambda: None))
+        fn(*inputs)  # warmup
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(self.repeats):
+            fn(*inputs)
+        sync()
+        return (time.perf_counter() - t0) / self.repeats

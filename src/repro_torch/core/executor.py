@@ -359,3 +359,48 @@ class Int8Executor:
             self._fb_reasons = dict(Counter(
                 fb.reason for fb in self.program.fallbacks()))
         return self._fb_reasons
+
+
+def build_group_callable(g: XGraph, group: list, params_or_qm, device=None):
+    """One group as a standalone callable with random inputs on ``device``
+    (None: CUDA) — the on-board evaluator's unit of measurement.  A
+    ``QuantizedModel`` runs the group's nodes through the per-node int8
+    path, float params through the float path; the weights move to the
+    device here, once."""
+    dev = resolve_device(device)
+    in_names = list(dict.fromkeys(
+        i for nm in group for i in g.nodes[nm].inputs if i not in group))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    if isinstance(params_or_qm, QuantizedModel):
+        qm = params_or_qm
+        # full-range int8 activations: near-zero data would let saturation
+        # work go unexercised and skew the timings
+        ins = [torch.randint(-128, 128, tuple(g.shape(i)), generator=gen,
+                             dtype=torch.int8, device=dev) for i in in_names]
+        wts = {nm: (torch.as_tensor(np.asarray(qm.weights[nm], np.int8),
+                                    device=dev),
+                    torch.as_tensor(np.asarray(qm.biases[nm], np.int32),
+                                    device=dev))
+               for nm in group if nm in qm.weights}
+
+        def fn(*xs):
+            env = dict(zip(in_names, xs))
+            with torch.no_grad():
+                for nm in group:
+                    env[nm] = _int8_node(g, g.nodes[nm], env, qm, wts)
+            return env[group[-1]]
+    else:
+        params = _float_params({nm: params_or_qm[nm] for nm in group
+                                if nm in params_or_qm}, dev)
+        ins = [torch.randn(tuple(g.shape(i)), generator=gen, device=dev)
+               for i in in_names]
+
+        def fn(*xs):
+            env = dict(zip(in_names, xs))
+            with torch.no_grad(), _exact_float32():
+                for nm in group:
+                    env[nm] = _float_node(g, g.nodes[nm], env, params)
+            return env[group[-1]]
+
+    return fn, ins

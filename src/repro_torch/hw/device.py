@@ -1,4 +1,4 @@
-# Copied from src/repro/hw/device.py; imports point at repro_torch.
+# Copied from src/repro/hw/device.py; imports point at repro_torch; H100 added.
 """Hardware device models.
 
 A ``DeviceModel`` captures exactly what the DNNVM optimizers need to know:
@@ -16,7 +16,10 @@ The paper's published numbers:
   (¹ peak at 330 MHz with batch 3; our model uses the single-sample engine.)
 
 ``TPU_V5E`` is the reference package's planning model, kept so that
-``get_device`` resolves the same names; an H100 model is not defined yet.
+``get_device`` resolves the same names.  ``H100`` is the port's counterpart
+of it: the capacity model the tile search enumerates candidates under,
+with each field taken from the chain kernel (``kernels/conv_fused``) or
+the card's data sheet.  ZU2 stays the planning device of the main path.
 """
 from __future__ import annotations
 
@@ -145,7 +148,32 @@ TPU_V5E = DeviceModel(
     ddr_align=512,                         # HBM burst / lane-tile alignment
 )
 
-_DEVICES = {d.name: d for d in (ZU2, ZU9, TPU_V5E)}
+# --- NVIDIA H100 (SXM, 80 GB): the chain kernel's view of the card ----------
+# One block of ``chain_kernel`` gets SMEM_MAX bytes of shared memory
+# (kernels/conv_fused/ops.py); it is split into B_in / B_weights / B_out in
+# the 45% / 35% / 20% proportion of the other models.  Each buffer is smaller
+# than ZU2's, so a tile shape that fits H100 also fits the ZU2 plan.
+_H100_SMEM = 232448
+
+H100 = DeviceModel(
+    name="h100",
+    freq_hz=1.98e9,                       # max SM clock (nvidia-smi clocks.max.sm)
+    ic_p=32,                              # K of int8 mma.sync.m16n8k32
+    oc_p=32,                              # a warp item's channels: 8 x conv_nt
+    h_p=16,                               # a warp item's pixels: M of m16n8k32
+    buf_in_bytes=int(_H100_SMEM * 0.45),
+    buf_weights_bytes=int(_H100_SMEM * 0.35),
+    buf_out_bytes=int(_H100_SMEM * 0.20),
+    dram_bw_bytes_per_s=3.35e12,          # HBM3 (data sheet; PERF.md section 2)
+    elem_bytes=1,                         # int8 data path
+    peak_ops_override=1.979e15,           # dense int8 tensor-core peak (data sheet)
+    pool_lanes=132 * 128,                 # 132 SMs x 128 int32 lanes
+    misc_lanes=132 * 128,                 # the same lanes run the eltwise adds
+    ddr_bytes=80 * 1024 ** 3,             # 80 GB of HBM3
+    ddr_align=256,                        # cudaMalloc's alignment
+)
+
+_DEVICES = {d.name: d for d in (ZU2, ZU9, TPU_V5E, H100)}
 
 
 def get_device(name: str) -> DeviceModel:

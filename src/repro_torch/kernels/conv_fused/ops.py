@@ -15,7 +15,10 @@ launches its kernel or raises.  ``LAUNCHES`` counts kernel launches and
 ``PLAIN_CALLS`` counts the wrappers' CPU branch.
 
 ``run_launch`` executes one ``FusedLaunch`` against an activation env; the
-executor builds each launch's device weights once (``prepare_launch``).
+executor builds each launch's device weights once (``prepare_launch``).  A
+chain launch's tile record (from the tile search, ``tune.tiles``) is run as
+recorded or raises (``card_tile``); ``TILE_RECORDS`` counts the chain
+launches that ran at one.
 """
 from __future__ import annotations
 
@@ -32,10 +35,11 @@ I8_MIN = -128
 
 LAUNCHES = {"fused_chain": 0, "fused_horizontal": 0}
 PLAIN_CALLS = {"fused_chain": 0, "fused_horizontal": 0}
+TILE_RECORDS = {"applied": 0}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, TILE_RECORDS):
         for k in d:
             d[k] = 0
 
@@ -338,6 +342,23 @@ def choose_chain_tile(chain, oh: int, ow: int, oc: int, c_in: int, n: int,
     return best[1]
 
 
+def card_tile(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
+              tile) -> tuple[tuple, str | None]:
+    """The (th, tw, toc) the chain kernel runs for a forced tile — th and tw
+    clamped to the output — and why the card cannot run it (None when it
+    can): the OC grid axis cannot run ragged, and a block's buffers must
+    fit in its shared memory."""
+    th, tw, toc = (max(1, min(int(tile[0]), oh)),
+                   max(1, min(int(tile[1]), ow)), int(tile[2]))
+    if toc < 1 or oc % toc:
+        return (th, tw, toc), f"toc {toc} does not divide {oc}"
+    _, smem = chain_plan(chain, oh, ow, oc, c_in, oc_list, (th, tw, toc))
+    if smem > SMEM_MAX:
+        return (th, tw, toc), (f"needs {smem} bytes of shared memory, a "
+                               f"block has {SMEM_MAX}")
+    return (th, tw, toc), None
+
+
 @functools.lru_cache(maxsize=None)
 def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
                tile: tuple) -> tuple[np.ndarray, int]:
@@ -460,15 +481,10 @@ def _chain_call(chain, oh, ow, oc, tile, x_geom, w_shapes, b_shapes,
     if tile is None:
         tile = choose_chain_tile(chain, oh, ow, oc, c_in, n, oc_list)
     else:
-        th, tw, toc = (max(1, min(int(tile[0]), oh)),
-                       max(1, min(int(tile[1]), ow)), int(tile[2]))
-        if toc < 1 or oc % toc:
-            raise ValueError(f"fused_chain: toc {toc} does not divide {oc}")
-        tile = (th, tw, toc)
+        tile, why = card_tile(chain, oh, ow, oc, c_in, oc_list, tile)
+        if why:
+            raise ValueError(f"fused_chain: tile {tile}: {why}")
     desc, smem = chain_plan(chain, oh, ow, oc, c_in, oc_list, tile)
-    if smem > SMEM_MAX:
-        raise ValueError(f"fused_chain: tile {tile} needs {smem} bytes of "
-                         f"shared memory")
     desc = desc.copy()
     desc[1:4] = x_shape[:3]
     desc[5:8] = x_strides[:3]
@@ -705,11 +721,51 @@ def prepare_launch(launch, qm, device) -> dict:
             "packed": tuple(pack_chain_weights(w) for w in weights)}
 
 
+def launch_geometry(launch, in_shape, conv_ocs) -> tuple:
+    """(oh, ow, oc, c_in, oc_list) of a chain launch on an input of
+    ``in_shape`` (NHWC, before an fc's flattening); ``conv_ocs`` are the
+    conv stages' output channels in order."""
+    oh, ow = launch.out_hw
+    c_in = (in_shape[1] * in_shape[2] * in_shape[3] if launch.fc_reshape
+            else in_shape[3])
+    ocs = iter(int(c) for c in conv_ocs)
+    oc_list = tuple(next(ocs) if st[0] == "conv" else 0
+                    for st in launch.stages)
+    convs = [c for c in oc_list if c]
+    return oh, ow, (convs[-1] if convs else c_in), c_in, oc_list
+
+
+def launch_tile(launch, in_shape, conv_ocs) -> tuple | None:
+    """The tile a chain launch runs at: its record (``launch.tile``) as the
+    card runs it, or None (the card's chooser) without one.  A record the
+    card cannot run raises: no quiet fall back to the chooser."""
+    if not launch.tile:
+        return None
+    oh, ow, oc, c_in, oc_list = launch_geometry(launch, in_shape, conv_ocs)
+    tile, why = card_tile(launch.stages, oh, ow, oc, c_in, oc_list,
+                          launch.tile)
+    if why:
+        raise ValueError(
+            f"launch {'+'.join(launch.nodes)}: tile record "
+            f"{tuple(launch.tile)} does not run on this card ({why}); "
+            f"re-run the tile search (tune.search_tile_shapes) on this card")
+    return tile
+
+
 def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
                ) -> dict:
-    """Execute one FusedLaunch; returns {tensor name: int8 tensor}.  The
-    launch's TPU tile record (``launch.tile``) is not used: the card picks
-    its own tile."""
+    """Execute one FusedLaunch; returns {tensor name: int8 tensor}.
+
+    A chain launch with a tile record (``launch.tile``) runs at that
+    (th, tw, toc) — th and tw clamped to the output — and counts in
+    ``TILE_RECORDS``; a record the card cannot run raises
+    (``launch_tile``).  Without one the card's chooser picks the tile.
+
+    A horizontal launch's tile record is not applied on the card:
+    ``horizontal_mma_kernel`` is an implicit GEMM whose plan (rows per
+    tile, K split; ``horizontal_plan``) depends only on M, N and K, so a
+    (t_h, t_w, t_oc) has no knob to set there.  The tile search records
+    horizontal launches with no tile (``source: "card_plan"``)."""
     x = env[launch.in_name]
     if prepared is None:
         prepared = prepare_launch(launch, qm, x.device)
@@ -730,7 +786,12 @@ def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
     sides = tuple(env[s] for s in launch.sides)
     oh, ow = launch.out_hw
     oc = int(weights[-1].shape[-1]) if weights else int(x.shape[-1])
+    tile = None
+    if launch.tile:
+        tile = launch_tile(launch, tuple(env[launch.in_name].shape),
+                           [w.shape[-1] for w in weights])
+        TILE_RECORDS["applied"] += 1
     y = fused_chain(x, weights, prepared["biases"], sides,
-                    chain=launch.stages, oh=oh, ow=ow, oc=oc,
+                    chain=launch.stages, oh=oh, ow=ow, oc=oc, tile=tile,
                     packed=prepared.get("packed"))
     return {launch.out_name: y}

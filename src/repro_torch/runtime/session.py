@@ -7,7 +7,10 @@ Port of ``src/repro/runtime/session.py``.  A :class:`Session` binds one
   a :class:`~repro_torch.asm.artifact.PlanCache` — the serving path compiles
   once and every later construction is a dictionary hit;
 * an :class:`~repro_torch.core.executor.Int8Executor` over the artifact's
-  lowered ``GroupProgram`` on one ``torch.device``.
+  lowered ``GroupProgram`` on one ``torch.device``;
+* the memory plan + addressed instruction stream, from which
+  :meth:`pipeline_report` derives the engine-level cross-request schedule
+  (in the planning device model's simulated cycles).
 
 The plan cache keys on the planning ``DeviceModel``, not on the
 ``torch.device``: a CPU session and a CUDA session of one model share one
@@ -19,8 +22,7 @@ batched launch (one kernel grid covers all N images — the executor's batch
 dimension is free); ``serve`` wraps the session in the dynamic-batching
 :class:`~repro_torch.runtime.server.Server`.
 
-Not ported yet: device profiles (``profile=`` raises; ROADMAP, Queue 1 item
-4), ``pipeline_report`` (item 2) and drift (item 5).
+Not ported yet: drift (ROADMAP, Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import warnings
 
 import torch
 
-# None -> None; a device profile raises until the tuner is ported
+# None | DeviceProfile | name/path -> DeviceProfile | None (lazy tune import)
 from repro_torch.stages.stages import _resolve_profile
 
 
@@ -43,7 +45,12 @@ class Session:
         under; ``device`` is where the executor runs (None: CUDA, which
         raises where CUDA is absent).  ``cache`` is the plan cache to
         compile through (None: ``asm.PLAN_CACHE``); ``pin_input`` forwards
-        to the memory planner; ``cache_max_entries`` rebounds that cache."""
+        to the memory planner; ``cache_max_entries`` rebounds that cache.
+        ``profile`` names the calibrated device profile to compile under — a
+        ``tune.DeviceProfile``, a profile name/path resolved through the
+        on-disk ``tune.ProfileCache``, or None (the analytic model; a
+        strategy picked by a profile-guided search still keys by the profile
+        hash it carries)."""
         from repro_torch import asm
         from repro_torch.core.executor import Int8Executor
 
@@ -52,7 +59,8 @@ class Session:
         if cache_max_entries is not None:
             self.cache.max_entries = cache_max_entries
         self.artifact, self.cache_hit = self.cache.get_or_compile(
-            g, strategy, dev, qm=qm, pin_input=pin_input)
+            g, strategy, dev, qm=qm, profile=self.profile,
+            pin_input=pin_input)
         self.graph, self.qm, self.device_model = g, qm, dev
         self.backend = backend
         # "fused" dispatches the artifact's stored program; "ref" walks its
@@ -72,19 +80,23 @@ class Session:
         """Open a session on a loaded DNNVM object file — no recompilation:
         the artifact is seeded into the plan cache under its own key.
 
-        An artifact planned under a device profile warns: this package has
-        no profiles yet, so the session runs it under the analytic model."""
+        The artifact records the device-profile hash it was planned under;
+        loading it under a *different* profile (or under none, when it was
+        profile-planned) warns — the plan was tuned for measured rates this
+        deployment may not match."""
         from repro_torch import asm
         from repro_torch.hw import get_device
 
         resolved = _resolve_profile(profile)
-        if art.profile_hash is not None:
+        got = resolved.hash() if resolved is not None else None
+        want = art.profile_hash
+        if got != want:
             warnings.warn(
                 f"artifact was planned under device profile "
-                f"{art.profile_hash} ({art.meta.get('profile_name') or 'n/a'})"
-                f" but is being loaded under analytic — its strategy was "
-                f"tuned for measured rates this session may not match; "
-                f"recompile under the current profile to re-tune",
+                f"{want or 'analytic'} ({art.meta.get('profile_name') or 'n/a'})"
+                f" but is being loaded under {got or 'analytic'} — its "
+                f"strategy was tuned for measured rates this session may not "
+                f"match; recompile under the current profile to re-tune",
                 stacklevel=2)
         g = art.rebuild_graph()
         qm = art.quantized_model()
@@ -168,6 +180,22 @@ class Session:
         self.images_served += n
         return [{k: v[i:i + 1] for k, v in out.items()} for i in range(n)]
 
+    # -------------------------------------------------------- schedule view
+    def pipeline_report(self, n_requests: int, ddr_slots: int | None = 2,
+                        profile=None):
+        """Engine-level cross-request schedule of ``n_requests`` pipelined
+        copies of this session's instruction stream (hazard-audited).  Its
+        cycles are the planning device model's simulated cycles (ZU2 on the
+        main path), not the card's time.
+
+        ``ddr_slots=None`` selects the double-buffer slot depth from the
+        stream's DRAM/compute ratio under ``profile`` (defaulting to the
+        profile this session was compiled with)."""
+        from repro_torch.runtime.schedule import pipeline_report
+        return pipeline_report(self.artifact, n_requests, ddr_slots=ddr_slots,
+                               profile=(profile if profile is not None
+                                        else self.profile))
+
     # --------------------------------------------------------------- explain
     def explain(self, *, render: bool = False):
         """This session's compile-decision provenance: the artifact's
@@ -200,4 +228,7 @@ class Session:
                 "n_launches": self.program.meta["n_launches"],
                 "n_fallbacks": self.program.meta["n_fallbacks"],
                 "sim_cycles_per_image": self.artifact.sim_total_cycles,
+                "profile_hash": self.artifact.profile_hash,
+                "session_profile_hash": (self.profile.hash()
+                                         if self.profile else None),
                 "pin_input": self.artifact.pin_input}

@@ -25,10 +25,6 @@ cache's identity both hang off these.  Stage transitions accept a
 ``StageCache`` (default: the shared ``STAGE_CACHE``; pass ``cache=None``
 for pure recomputation, which is how ``asm.compile_strategy`` keeps its
 original one-call semantics).
-
-The tuner (``tune/``) is not ported: a device profile, a profile-guided
-search and ``Lowered.retune`` raise ``NotImplementedError`` here instead of
-falling back to the analytic model.
 """
 from __future__ import annotations
 
@@ -52,17 +48,13 @@ def _resolve_cache(cache, inherited):
     return cache
 
 
-TUNER_NOT_PORTED = ("the tuner (tune/: device profiles, calibrated "
-                    "evaluators, the tile search) is not ported yet "
-                    "(ROADMAP, Queue 1 item 4)")
-
-
 def _resolve_profile(profile):
-    """None -> None; a device profile raises until the tuner is ported
-    (same contract as runtime.session)."""
+    """None | DeviceProfile | name/path -> DeviceProfile | None (lazy tune
+    import, same contract as runtime.session)."""
     if profile is None:
         return None
-    raise NotImplementedError(f"profile={profile!r}: {TUNER_NOT_PORTED}")
+    from repro_torch.tune.profile import resolve_profile
+    return resolve_profile(profile)
 
 
 def _quant_signature_of(qm) -> str:
@@ -115,8 +107,11 @@ class Wrapped:
               bool(enable_horizontal))
 
         def build():
-            strat = pathsearch.search(self.graph, self.device,
-                                      evaluator=evaluator,
+            ev = evaluator
+            if ev is None and resolved is not None:
+                from repro_torch.tune import CalibratedEvaluator
+                ev = CalibratedEvaluator(self.graph, self.device, resolved)
+            strat = pathsearch.search(self.graph, self.device, evaluator=ev,
                                       device_of=device_of,
                                       enable_horizontal=enable_horizontal)
             return self._make_lowered(strat, resolved, ph, pname, cache)
@@ -197,10 +192,13 @@ class Lowered:
 
     def retune(self, *, profile=None, harness=None, cache=_INHERIT,
                **search_kw) -> "Lowered":
-        """Re-run the measured tile-shape search over this lowering (the
-        reference's ``tune.tiles.tune_lowered``): raises until the tuner is
-        ported."""
-        raise NotImplementedError(f"Lowered.retune: {TUNER_NOT_PORTED}")
+        """Re-run the measured tile-shape search over this lowering and
+        return a new ``Lowered`` carrying the tuned shapes — pathsearch is
+        NOT re-run (see ``tune.tiles.tune_lowered``)."""
+        from repro_torch.tune.tiles import tune_lowered
+        return tune_lowered(self, profile=profile, harness=harness,
+                            cache=_resolve_cache(cache, self._cache),
+                            **search_kw)
 
 
 # ------------------------------------------------------------------- planned

@@ -23,7 +23,9 @@ from repro_torch.explain import report_of
 from repro_torch.hw import ZU2
 from repro_torch.obs.events import EVENTS
 from repro_torch.runtime import Session
+from repro_torch.core import pathsearch
 from repro_torch.stages import compile_model
+from repro_torch.tune import ProfileCache
 from torch_common import build_graph, port_model, reference_model, strategy
 
 MODELS = [("toy", 16), ("googlenet", 32)]
@@ -173,7 +175,7 @@ def test_plan_cache_counts_hits_misses_and_evictions():
         cache.max_entries = 0
 
 
-def test_session_compiles_through_the_plan_cache():
+def test_session_compiles_through_the_plan_cache(tmp_path, monkeypatch):
     g, qm, xq = port_model("toy", 16)
     cache = asm.PlanCache()
     s = strategy("repro_torch", g)
@@ -191,7 +193,16 @@ def test_session_compiles_through_the_plan_cache():
                    pin_input=True).stats()["pin_input"] is True
     Session(g, s, ZU2, qm, device="cpu", cache=cache, cache_max_entries=1)
     assert len(cache) == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # a profile named in the on-disk cache: compiled under it, keyed apart
+    p = _profile()
+    ProfileCache(str(tmp_path)).put(p)
+    monkeypatch.setenv("DNNVM_PROFILE_CACHE", str(tmp_path))
+    tuned = Session(g, s, ZU2, qm, device="cpu", cache=cache,
+                    profile=p.name)
+    assert not tuned.cache_hit and tuned.profile == p
+    assert tuned.artifact.profile_hash == p.hash()
+    assert tuned.stats()["session_profile_hash"] == p.hash()
+    with pytest.raises(KeyError, match="no profile named"):
         Session(g, s, ZU2, qm, device="cpu", cache=cache, profile="h100")
 
 
@@ -217,6 +228,46 @@ def test_from_artifact_seeds_the_cache_and_serves(model, img, tmp_path):
         assert torch.equal(got[k], want[k]), k
     via = loaded.session(device="cpu", cache=cache)
     assert via.cache_hit and via.backend == "fused" and cache.misses == 1
+
+
+def _profile():
+    from repro_torch.tune import DeviceProfile
+    from repro_torch.tune.profile import COEF_NAMES
+    return DeviceProfile(name="unit", device="zu2", backend="fused",
+                         jax_version="t", features="analytic",
+                         combine="sum",
+                         coef=tuple(1e-9 * (i + 1)
+                                    for i in range(len(COEF_NAMES))),
+                         deviation=0.0, n_samples=3)
+
+
+def test_from_artifact_profile_mismatch_warns(tmp_path):
+    """As the reference (tests/test_tune.py): a profile-planned artifact
+    reopened without its profile warns and still serves, from the cache;
+    under the matching profile, or analytic under none, it does not."""
+    g, qm, _ = port_model("toy", 16)
+    p = _profile()
+    from repro_torch.tune import CalibratedEvaluator
+    s = pathsearch.search(g, ZU2, evaluator=CalibratedEvaluator(g, ZU2, p))
+    path = str(tmp_path / "tuned.npz")
+    asm.save_artifact(asm.compile_strategy(g, s, ZU2, qm=qm, profile=p), path)
+    loaded = asm.load_artifact(path)
+    assert loaded.profile_hash == p.hash()
+    with pytest.warns(UserWarning, match="planned under device profile"):
+        sess = Session.from_artifact(loaded, device="cpu",
+                                     cache=asm.PlanCache())
+    assert sess.cache_hit and sess.stats()["profile_hash"] == p.hash()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        again = Session.from_artifact(loaded, device="cpu",
+                                      cache=asm.PlanCache(), profile=p)
+    assert again.cache_hit and again.profile == p
+    asm.save_artifact(asm.compile_strategy(g, strategy("repro_torch", g),
+                                           ZU2, qm=qm), path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        Session.from_artifact(asm.load_artifact(path), device="cpu",
+                              cache=asm.PlanCache())
 
 
 def test_from_artifact_warns_on_a_profile_planned_artifact():

@@ -132,6 +132,56 @@ def test_fused_executor_matches_ref_on_card(dev, model, img):
         assert torch.equal(got[k], want[k]), k
 
 
+def test_time_callable_times_with_cuda_events(dev, monkeypatch):
+    """On a CUDA input each sample is CUDA-event device time over queued
+    calls: two events a sample, and an elementwise add over 4 MB takes at
+    least its bytes over the card's memory rate, well under a millisecond."""
+    from repro_torch.tune import measure
+    made = []
+    event = torch.cuda.Event
+
+    def counted(*a, **kw):
+        made.append(event(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(torch.cuda, "Event", counted)
+    x = torch.zeros(1 << 20, device=dev)
+    sec, spread, n_ok, n_rej, samples = measure.time_callable(
+        lambda t: t.add_(1), [x], repeats=3)
+    assert len(made) == 6 and len(samples) == 3
+    assert 8 * (1 << 20) / 3.35e12 <= sec < 1e-3
+
+
+def test_tuned_session_bit_exact_on_card(dev):
+    """GoogLeNet-32 tile-searched on the card (each chain forced to its
+    fastest non-default candidate), then served: every record applied,
+    the kernels only, and bit-exact against the ref executor."""
+    from repro_torch import asm, tune
+    from repro_torch.core import validate
+    from repro_torch.hw import H100, ZU2
+    from repro_torch.runtime import Session
+    from torch_common import port_model
+    g, qm, xq = port_model("googlenet", 32)
+    s = strategy("repro_torch", g)
+    h = tune.MeasurementHarness(g, qm, H100, device=dev, repeats=2)
+    rep = tune.search_tile_shapes(g, qm, H100, s, harness=h, top_k=2)
+    forced = {}
+    for u in rep.provenance:
+        others = [c for c in u["candidates"] if not c["default"]]
+        if others:
+            forced[u["key"]] = min(others, key=lambda c: c["measured"])[
+                "shape"]
+    assert forced
+    s.meta["tile_shapes"] = forced
+    ops.reset_counts()
+    sess = Session(g, s, ZU2, qm, device=dev, cache=asm.PlanCache())
+    sess.run(xq)
+    torch.cuda.synchronize()
+    assert ops.TILE_RECORDS["applied"] == len(forced)
+    assert not any(ops.PLAIN_CALLS.values())
+    assert validate.bit_exact(g, qm, xq, s, device=dev)
+
+
 @pytest.mark.parametrize("shift", EXTREME_SHIFTS)
 def test_conv_kernels_match_plain_at_int32_extremes(dev, shift):
     """round_shift where the reference's int32 arithmetic wraps: biases

@@ -66,6 +66,52 @@ print("REOPENED", sess.cache_hit, reopened.cache_hit, same, bool(text))
     assert res.stdout.splitlines()[1] == "REOPENED False True True True"
 
 
+def test_cpu_tune_path_never_loads_jax_or_reference():
+    """The tuner on the CPU: an injected (simulator) calibration, a
+    calibrated search, a measured calibration and tile search through the
+    harness, a session compiled under the profile with its tile records,
+    and its pipeline report, with no jax in the process."""
+    code = """
+import sys
+import numpy as np
+from functools import partial
+from repro_torch import tune
+from repro_torch.cnn import build, init_params
+from repro_torch.core import executor, pathsearch, quantize
+from repro_torch.core.cost import SimulatorEvaluator
+from repro_torch.hw import H100, ZU2
+from repro_torch.kernels.conv_fused import ops
+from repro_torch.runtime import Session
+g = build("googlenet", img=32, num_classes=10)
+x = np.random.default_rng(0).standard_normal(g.shape("data")).astype("float32")
+qm = quantize.calibrate(g, init_params(g), x,
+                        partial(executor.run_float, device="cpu"))
+sim = SimulatorEvaluator(g, ZU2)
+inj = tune.calibrate(g, qm, ZU2, measure_fn=sim, features="analytic")
+h = tune.MeasurementHarness(g, qm, ZU2, device="cpu", repeats=2)
+cal = tune.calibrate(g, qm, ZU2, harness=h, max_samples=8,
+                     min_measurable_s=0.0)
+s = pathsearch.search(g, ZU2, evaluator=tune.CalibratedEvaluator(
+    g, ZU2, cal.profile))
+rep = tune.search_tile_shapes(
+    g, qm, H100, s, harness=tune.MeasurementHarness(g, qm, H100,
+                                                    device="cpu", repeats=1),
+    top_k=1, min_measurable_s=0.0)
+ops.reset_counts()
+sess = Session(g, s, ZU2, qm, device="cpu", profile=cal.profile)
+sess.run(quantize.quantize_to(x, qm.f_a["data"]))
+pr = sess.pipeline_report(4, ddr_slots=None)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad, inj.report["n_samples"] > 0,
+      ops.TILE_RECORDS["applied"] == rep.n_tuned, pr.ddr_slots_source)
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "BAD [] True True profile", res.stdout
+
+
 def test_cpu_lm_path_never_loads_jax_or_reference():
     code = """
 import dataclasses, sys

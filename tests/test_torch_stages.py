@@ -2,7 +2,8 @@
 tests/test_stages.py holds the reference: the staged walk equals the
 one-call compile, warm recompiles hit every stage cache, planner knobs
 re-plan without re-searching, stage keys are stable across processes and
-equal the reference's, and the tuner's paths raise until it is ported."""
+equal the reference's, and profiles and ``Lowered.retune`` reach the
+tuner."""
 import json
 import os
 import pathlib
@@ -164,14 +165,55 @@ def test_compile_strategy_is_a_thin_stage_wrapper(toy):
     assert a1 is not a2 and a1.instrs == a2.instrs
 
 
-def test_tuner_paths_raise_until_ported(toy):
+def _kernel_profile():
+    """A kernel-domain profile dominated by per-block overhead: fewer,
+    larger tiles predict faster than the card's chooser."""
+    from repro_torch.tune import DeviceProfile
+    from repro_torch.tune.profile import COEF_NAMES
+    coef = [0.0] * len(COEF_NAMES)
+    coef[COEF_NAMES.index("cells")] = 1e-4
+    return DeviceProfile(name="cells", device="zu2", backend="fused",
+                         jax_version="t", features="kernel", combine="sum",
+                         coef=tuple(coef), deviation=0.0, n_samples=3)
+
+
+def test_tuner_paths_raise_until_ported(toy, tmp_path, monkeypatch):
+    """Once raising, now ported: ``compile_model`` and ``lower`` under a
+    profile (object or name in a ``ProfileCache``) search under the
+    calibrated evaluator and record its hash; ``Lowered.retune`` re-runs
+    only the tile search (one new lowering, no new wrap, same groups); an
+    unknown profile name is a KeyError."""
+    from repro_torch.tune import ProfileCache
     g, qm = toy
-    lo = wrap(g, qm, ZU2, cache=None).lower(cache=None)
-    for fn in (lambda: compile_model(g, qm, ZU2, profile="h100", cache=None),
-               lambda: wrap(g, qm, ZU2, cache=None).lower(profile="h100"),
-               lambda: lo.retune()):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            fn()
+    p = _kernel_profile()
+    ProfileCache(str(tmp_path)).put(p)
+    monkeypatch.setenv("DNNVM_PROFILE_CACHE", str(tmp_path))
+    sc, reg = _cache()
+    co = compile_model(g, qm, ZU2, profile="cells", cache=sc)
+    assert co.artifact.profile_hash == p.hash()
+    assert co.artifact.meta["profile_name"] == "cells"
+    lo = wrap(g, qm, ZU2, cache=sc).lower(profile=p)
+    assert lo.profile == p and lo.strategy.meta["evaluator"] == \
+        "CalibratedEvaluator"
+    before = _counts(reg, "misses")
+    tuned = lo.retune()
+    after = _counts(reg, "misses")
+    assert after["wrapped"] == before["wrapped"]
+    assert after["lowered"] == before["lowered"] + 1
+    assert tuned is not lo and tuned.profile_hash == p.hash()
+    assert [list(x) for x in tuned.strategy.groups] == \
+        [list(x) for x in lo.strategy.groups]
+    assert tuned.strategy.meta["tile_source"] == "profile"
+    assert "tile_provenance" not in lo.strategy.meta   # input not mutated
+    x = np.random.default_rng(4).integers(-128, 127, g.shape("data"), np.int8)
+    want = Session(g, lo.strategy, ZU2, qm, device="cpu",
+                   cache=asm.PlanCache()).run(x)
+    got = tuned.plan().compile().session(device="cpu", profile=p,
+                                         cache=asm.PlanCache()).run(x)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    with pytest.raises(KeyError, match="no profile named"):
+        compile_model(g, qm, ZU2, profile="absent", cache=None)
 
 
 def test_compiled_session_equals_strategy_session(toy):
