@@ -100,6 +100,31 @@ Phases (any failure raises and the script exits non-zero):
    ``Session.run`` p50 in turns and ``chain_kernel`` device ms per image in
    a profiled run; ``Lowered.retune`` with stage-cache counters; and
    ``pipeline_report(8, ddr_slots=None)`` in the ZU2 model's cycles.
+9. The serving plane, after phase 8 and with its profile, in a temporary
+   directory: (a) GoogLeNet-224 and ResNet50-224 compiled into a
+   ``ModelZoo`` by ``stages.compile_model(zoo=...)`` and reopened by a
+   fresh stage cache with 0 stages compiled; (b) both served by one
+   ``MultiServer`` on the card (GoogLeNet ``gold``, ResNet50
+   ``best_effort``), 64 interleaved requests at once, each answer
+   bit-equal to the tenant's own ``Session.run``, 42 + 9 kernel launches
+   per GoogLeNet executor launch and 45 per ResNet50 one (counted through
+   the sessions' launch hooks), no plain call, the DDR carve-up disjoint
+   and within the ZU2 budget, each tenant's card memory beside its
+   planned bytes; (c) a ``DriftProfiler`` on the GoogLeNet tenant
+   (``every=16``), not drifted against the profile calibrated in phase 8
+   and drifted against a copy with halved rates; (d) the OpenMetrics
+   endpoint scraped over loopback mid-stream and strict-parsed
+   (per-tenant requests, burn and drift gauges), ``/explain/googlenet``
+   with its drift section, ``python -m repro_torch.obs.dump`` against it;
+   (e) a tenant re-added with ``max_queue=4`` shedding a flood
+   (``serve.rejected``), and a gold tenant at a 0.5 ms target firing a
+   burn alert with a flight dump on disk; (f) a two-replica GoogLeNet-224
+   ``Fleet`` on ``cuda:0`` under ``ChaosInjector``: r1 killed after 4
+   launches in a 32-request burst (every answer bit-exact, r1 evicted with
+   an event and a flight dump), healed and re-admitted by its canary, a
+   poisoned r0 launch retried; the only failed attempts ``ChaosError``s,
+   the kernel launches again 42 + 9 per executor launch; the fleet's
+   images/s at 1 and 2 replicas (host clock).
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -1027,7 +1052,8 @@ def tune_phase(m, dev, card: str) -> dict:
         "FPGA model's, not the card's): " + json.dumps(sched))
     secs = time.perf_counter() - t_phase
     log(f"tune phase took {secs:.1f} s")
-    return {"rows": rep["n_samples"], "deviation": rep["deviation"],
+    return {"profile": prof,
+            "rows": rep["n_samples"], "deviation": rep["deviation"],
             "stacked_deviation": rep["stacked"]["deviation"],
             "profile_hash": prof.hash(), "plans": plans,
             "n_units": tsr.n_units, "n_tuned": tsr.n_tuned,
@@ -1038,6 +1064,412 @@ def tune_phase(m, dev, card: str) -> dict:
             "tile_records_applied": applied, "run_p50_ms": p50,
             "chain_ms_per_image": chain_ms, "schedule": sched,
             "seconds": secs}
+
+
+# ----------------------------------------------------------------- phase 9
+GOOGLENET_LAUNCHES = {"fused_chain": 42, "fused_horizontal": 9}
+RESNET50_LAUNCHES = {"fused_chain": 45, "fused_horizontal": 0}
+
+
+def count_launches(session, counter: dict, key: str) -> None:
+    """Count ``session``'s executor launches under ``counter[key]`` through
+    its launch hook (keeping any hook already installed, such as the chaos
+    injector's): a launch whose hook raised never reached the executor and
+    is not counted."""
+    inner = session._launch_hook
+    counter.setdefault(key, 0)
+
+    def hook(x):
+        if inner is not None:
+            inner(x)
+        counter[key] += 1
+
+    session.set_launch_hook(hook)
+
+
+def check_kernel_launches(counter: dict, per_launch: dict, what: str
+                          ) -> dict:
+    """The conv kernels' launches since the last reset equal each counted
+    executor launch's own (42 + 9 per GoogLeNet-224 launch, 45 per
+    ResNet50-224 launch), and no plain conv call ran."""
+    from repro_torch.kernels.conv_fused import ops
+
+    torch.cuda.synchronize()
+    want = {k: sum(counter[name] * per_launch[name][k] for name in counter)
+            for k in ("fused_chain", "fused_horizontal")}
+    got, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    if got != want or any(plain.values()):
+        raise AssertionError(f"{what}: kernel launches {got} for executor "
+                             f"launches {counter} (want {want}), plain "
+                             f"calls {plain}")
+    return got
+
+
+def quantized_images(m, n: int, seed: int) -> list:
+    from repro_torch.core import quantize
+
+    rng = np.random.default_rng(seed)
+    return [quantize.quantize_to(rng.standard_normal(m["g"].shape(
+        "data")[1:]), m["qm"].f_a["data"]) for _ in range(n)]
+
+
+def zoo_phase(models, zoo) -> tuple:
+    """(a) Both models compiled into the zoo, then reopened by a fresh
+    stage cache with no stage past ``wrap`` compiled."""
+    from repro_torch import stages
+    from repro_torch.hw import ZU2
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    out, compiled = {}, {}
+    for name in ("googlenet", "resnet50"):
+        m = models[name]
+        co, put_s = timed(lambda: stages.compile_model(
+            m["g"], m["qm"], ZU2, zoo=zoo, name=name,
+            cache=stages.StageCache(registry=MetricsRegistry())))
+        reg = MetricsRegistry()
+        again, open_s = timed(lambda: stages.compile_model(
+            m["g"], m["qm"], ZU2, zoo=zoo,
+            cache=stages.StageCache(registry=reg)))
+        misses = _counts(reg)
+        if again.key != co.key or any(misses[st] for st in
+                                      ("lowered", "planned", "compiled")):
+            raise AssertionError(f"{name}: zoo reopen compiled stages "
+                                 f"{misses} (keys {co.key} / {again.key})")
+        out[name] = {"compile_and_put_s": put_s, "reopen_s": open_s,
+                     "stage_misses_on_reopen": misses}
+        compiled[name] = again
+    recs = {r["name"]: r for r in zoo.list()}
+    for name in out:
+        out[name]["bytes_on_disk"] = recs[name]["size_bytes"]
+    return compiled, out
+
+
+def multitenant_phase(compiled, models, prof, flight, dev) -> dict:
+    """(b)-(e): both tenants on one MultiServer, drift on GoogLeNet, the
+    scrape endpoint, admission and the SLO burn alert."""
+    import dataclasses
+    import urllib.request
+
+    from repro_torch.obs import DriftProfiler, MetricsRegistry
+    from repro_torch.obs.export import find_samples, parse_openmetrics
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.kernels.conv_fused import ops
+    from repro_torch.runtime import AdmissionError, MultiServer
+
+    res = {}
+    ms = MultiServer(flight=flight)
+    per_launch = {"googlenet": GOOGLENET_LAUNCHES,
+                  "resnet50": RESNET50_LAUNCHES}
+    # (b) the two tenants, the card's memory beside the planned bytes
+    memory = {}
+    for name, slo in (("googlenet", "gold"), ("resnet50", "best_effort")):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        ms.add_model(name, compiled[name], slo=slo,
+                     session_kw={"device": dev})
+        torch.cuda.synchronize()
+        memory[name] = {
+            "card_bytes_allocated": torch.cuda.memory_allocated(dev) - before,
+            "planned_ddr_bytes": ms.ddr_partition()[-1]["bytes"]}
+    sessions = {name: ms._models[name]["session"] for name in per_launch}
+    parts = ms.ddr_partition()
+    budget = ms.stats()["ddr_budget_bytes"]
+    if parts[0]["base"] != 0 or parts[1]["base"] != parts[0]["bytes"] or \
+            sum(p["bytes"] for p in parts) > budget:
+        raise AssertionError(f"DDR partition {parts} within {budget}")
+    imgs = {name: quantized_images(models[name], 8, SEED + 9 + i)
+            for i, name in enumerate(per_launch)}
+    stream = [("resnet50" if i % 4 == 3 else "googlenet") for i in range(64)]
+    counter: dict = {}
+    for name, sess in sessions.items():
+        count_launches(sess, counter, name)
+    ops.reset_counts()                   # ---- multi-tenant path starts
+    t0 = time.perf_counter()
+    futs = [(name, i, ms.submit(name, imgs[name][i % 8]))
+            for i, name in enumerate(stream)]
+    answers = [(name, i, f.result(timeout=300)) for name, i, f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_kernel_launches(counter, per_launch,
+                                     "multi-tenant stream")
+    # ---- multi-tenant path ends
+    st = ms.stats()
+    for name, sess in sessions.items():
+        sess.set_launch_hook(None)
+    for name, i, got in answers:
+        outputs_equal(got, sessions[name].run(imgs[name][i % 8]),
+                      f"{name} tenant answer {i}")
+    res["multitenant"] = {
+        "requests": {"googlenet": stream.count("googlenet"),
+                     "resnet50": stream.count("resnet50")},
+        "images_per_s": len(stream) / wall,
+        "executor_launches": dict(counter), "kernel_launches": launches,
+        "per_tenant": {name: {k: st["models"][name][k] for k in
+                              ("p50_ms", "p99_ms", "n_batches",
+                               "effective_max_batch", "slo_shrinks")}
+                       for name in sessions},
+        "ddr_partition": parts, "ddr_budget_bytes": budget,
+        "memory": memory}
+    log("MultiServer on the card, 64 requests (48 GoogLeNet-224 gold, 16 "
+        "ResNet50-224 best_effort), every answer == the tenant's "
+        "Session.run; host clock; card bytes allocated beside the ZU2 "
+        "plan's DDR bytes (not the same quantity): "
+        + json.dumps(res["multitenant"]))
+
+    # (c) drift on the GoogLeNet tenant against the tune phase's profile
+    dp = ms.attach_drift("googlenet", profile=prof, every=16)
+    _, prep_s = timed(dp.prepare)
+    g_img = imgs["googlenet"]
+    for i in range(16):                  # 16 launches: one sampling pass
+        ms.submit("googlenet", g_img[i % 8]).result(timeout=300)
+    if dp.n_sampled != 1:
+        raise AssertionError(f"drift sampled {dp.n_sampled} times over 16 "
+                             f"served launches (every=16)")
+    _, pass_s = timed(dp.sample)
+    rep = dp.report()
+    halved = dataclasses.replace(prof, coef=tuple(2 * c for c in prof.coef))
+    bad = DriftProfiler.from_session(sessions["googlenet"], profile=halved,
+                                     registry=MetricsRegistry())
+    bad.sample()
+    bad_rep = bad.report()
+    if rep.drifted or not bad_rep.drifted:
+        raise AssertionError(
+            f"drift under the card's own profile {rep.drifted} (aggregate "
+            f"{rep.aggregate}, band {rep.band}); under halved rates "
+            f"{bad_rep.drifted} (aggregate {bad_rep.aggregate})")
+    by_kind: dict = {}
+    for u in rep.units:
+        by_kind.setdefault(u.kind, []).append(abs(u.deviation))
+    res["drift"] = {
+        "drifted": rep.drifted, "aggregate_deviation": rep.aggregate,
+        "band": rep.band, "profile_deviation": rep.profile_deviation,
+        "units_sampled": len(rep.units), "units_skipped": len(rep.skipped),
+        "median_abs_deviation_by_kind": {
+            k: float(np.median(v)) for k, v in by_kind.items()},
+        "sampling_pass_s": pass_s, "prepare_s": prep_s,
+        "halved_rates": {"drifted": bad_rep.drifted,
+                         "aggregate_deviation": bad_rep.aggregate}}
+    log("drift on the GoogLeNet-224 tenant (CUDA-event device time per "
+        "unit against the tune phase's profile): " + json.dumps(res["drift"]))
+
+    # (d) the scrape endpoint mid-run, and the dump CLI against it
+    http = ms.serve_metrics()
+    futs = [ms.submit(name, imgs[name][i % 8])
+            for i, name in enumerate(stream[:32])]
+    text, scrape_s = timed(lambda: urllib.request.urlopen(
+        http.url("/metrics"), timeout=30).read().decode())
+    in_flight = sum(not f.done() for f in futs)
+    [f.result(timeout=300) for f in futs]
+    fams = parse_openmetrics(text)
+    needed = [("serve_requests", {"model": "googlenet"}),
+              ("serve_requests", {"model": "resnet50"}),
+              ("slo_burn_rate", {"model": "googlenet", "window": "fast"}),
+              ("drift_median_deviation", {"model": "googlenet"}),
+              ("drift_tripped", {"model": "googlenet"})]
+    for fam, labels in needed:
+        if not find_samples(fams, fam, **labels):
+            raise AssertionError(f"scrape lacks {fam}{labels}")
+    explain = json.loads(urllib.request.urlopen(
+        http.url("/explain/googlenet"), timeout=30).read().decode())
+    if "drift" not in explain or not explain["drift"]["units"]:
+        raise AssertionError("/explain/googlenet has no drift section")
+    snap_path = os.path.join(OUT, "serve_snapshot.json")
+    dump = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.dump", "--url",
+         http.url("/").rstrip("/"), "--out", snap_path],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    if dump.returncode != 0:
+        raise AssertionError(f"repro_torch.obs.dump: {dump.stderr[-2000:]}")
+    with open(snap_path) as f:
+        snap = json.load(f)
+    res["export"] = {"scrape_ms": 1e3 * scrape_s,
+                     "requests_in_flight_at_scrape": in_flight,
+                     "families": len(fams), "bytes": len(text),
+                     "dump_families": snap["n_families"],
+                     "explain_drift_units": len(explain["drift"]["units"])}
+    log("OpenMetrics scrape of the MultiServer over loopback (strict parse, "
+        "host clock): " + json.dumps(res["export"]))
+
+    # (e) admission control and the SLO burn alert
+    ms.remove_model("resnet50")
+    ms.add_model("resnet50", compiled["resnet50"], max_queue=4,
+                 session_kw={"device": dev})
+    key = "serve.rejected{model=resnet50}"
+    before = REGISTRY.get(key).value if REGISTRY.get(key) else 0.0
+    accepted, shed = [], 0
+    for i in range(64):
+        try:
+            accepted.append(ms.submit("resnet50", imgs["resnet50"][i % 8]))
+        except AdmissionError:
+            shed += 1
+    [f.result(timeout=300) for f in accepted]
+    if not shed or REGISTRY.get(key).value - before != shed:
+        raise AssertionError(f"{shed} requests shed, serve.rejected moved "
+                             f"{REGISTRY.get(key).value - before}")
+    ms.add_model("googlenet_tight", compiled["googlenet"], slo="gold",
+                 target_p99_ms=0.5, session_kw={"device": dev})
+    for i in range(12):
+        ms.submit("googlenet_tight", g_img[i % 8]).result(timeout=300)
+    burn = ms.stats()["burn"]["googlenet_tight"]
+    tight = [d for d in flight.dumps() if d["reason"] == "slo_violation"
+             and d["tenant"] == "googlenet_tight"]
+    alerts = REGISTRY.get("slo.alerts{class=gold,model=googlenet_tight}")
+    if not alerts or not tight or not os.path.exists(tight[-1]["path"]):
+        raise AssertionError(f"no burn alert or flight dump for a 0.5 ms "
+                             f"target: burn {burn}, dumps {len(tight)}")
+    res["admission"] = {"submitted": 64, "shed": shed,
+                        "accepted": len(accepted)}
+    res["slo"] = {"target_p99_ms": 0.5, "burn": burn,
+                  "alerts": alerts.value, "dump": os.path.basename(
+                      tight[-1]["path"]),
+                  "dump_records": len(tight[-1]["records"])}
+    log("admission and SLO burn on the card: " + json.dumps(
+        {"admission": res["admission"], "slo": res["slo"]}))
+    ms.close()
+    return res
+
+
+def wait_quiet(fleet, timeout_s: float = 30.0) -> None:
+    """Until no request, unanswered probe or strike is open on any replica
+    for three monitor ticks in a row: the kernels' counts are then
+    final."""
+    t0, calm = time.perf_counter(), 0
+    while calm < 3:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"fleet not quiet: {fleet.stats()}")
+        st = fleet.stats()
+        quiet = st["pending"] == 0 and all(
+            (r.probe is None or r.probe[0].done()) and r.strikes == 0
+            and not r.inflight and r.server.pending == 0
+            for r in fleet.replicas().values())
+        calm = calm + 1 if quiet else 0
+        time.sleep(fleet.check_interval_s)
+    torch.cuda.synchronize()
+
+
+def fleet_phase(art, want_imgs, want_outs, dump_dir, card0) -> dict:
+    """(f) A two-replica GoogLeNet-224 fleet on the one card ``card0``
+    under chaos."""
+    from repro_torch.obs.events import EventLog
+    from repro_torch.obs.flight import FlightRecorder
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.kernels.conv_fused import ops
+    from repro_torch.runtime import ChaosInjector, Fleet
+
+    per_launch = {"r0": GOOGLENET_LAUNCHES, "r1": GOOGLENET_LAUNCHES}
+    imgs = want_imgs
+
+    def burst(fleet, n=32):
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=300) for f in
+                [fleet.submit(imgs[i % len(imgs)]) for i in range(n)]]
+        torch.cuda.synchronize()
+        for i, got in enumerate(outs):
+            outputs_equal(got, want_outs[i % len(imgs)], f"fleet answer {i}")
+        return n / (time.perf_counter() - t0)
+
+    rates = {}
+    for n_rep in (1, 2):
+        with Fleet(art, n_replicas=n_rep, devices=[card0],
+                   registry=MetricsRegistry(), events=EventLog()) as fl:
+            burst(fl, 8)                   # first batches of each size
+            rates[n_rep] = burst(fl)
+    log(f"fleet images/s on one card (host-bound; 32 requests at once): 1 "
+        f"replica {rates[1]:.1f}, 2 replicas {rates[2]:.1f}")
+
+    # batches of at most 2, so each replica launches at least 8 times in a
+    # 32-request burst and r1's kill (after 4 healthy launches) fires
+    events = EventLog()
+    flight = FlightRecorder(dump_dir=dump_dir, events=events)
+    fleet = Fleet(art, n_replicas=2, devices=[card0], flight=flight,
+                  events=events, registry=MetricsRegistry(),
+                  server_kw={"max_batch": 2})
+    chaos = ChaosInjector().attach(fleet)
+    counter: dict = {}
+    for rid, r in fleet.replicas().items():
+        count_launches(r.session, counter, rid)
+    try:
+        ops.reset_counts()               # ---- fleet path starts
+        chaos.kill("r1", after_launches=4)
+        burst(fleet)
+        t0 = time.perf_counter()
+        while "r1" in fleet.active_replicas():
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("r1 was not evicted after its kill")
+            time.sleep(0.01)
+        evicts = [e for e in events.records(kind="replica.evict")
+                  if e.fields["replica"] == "r1"]
+        dumps = [d for d in flight.dumps() if d["reason"] == "replica_evict"]
+        if not evicts or not dumps or not os.path.exists(dumps[-1]["path"]):
+            raise AssertionError("no replica.evict event or flight dump")
+        chaos.heal("r1")
+        if not fleet.wait_active("r1", timeout_s=60):
+            raise AssertionError("r1 was not re-admitted after heal")
+        canary = fleet.replicas()["r1"].session._launch(fleet._canary_x)
+        if not fleet._canary_ok(canary):
+            raise AssertionError("r1's canary != r0's on the card")
+        chaos.poison("r0", 1)
+        burst(fleet, 16)
+        wait_quiet(fleet)
+        launches = check_kernel_launches(counter, per_launch,
+                                         "fleet under chaos")
+        # ---- fleet path ends
+        st = fleet.stats()
+    finally:
+        chaos.heal_all()
+        fleet.close()
+    errors = [r for r in flight.records() if r.status == "error"]
+    if not errors or any(not r.error.startswith("ChaosError")
+                         for r in errors):
+        raise AssertionError("failed fleet attempts that were not injected: "
+                             + json.dumps(sorted({r.error for r in errors})))
+    if chaos.fired("poison") != 1 or not chaos.fired("kill"):
+        raise AssertionError(f"chaos log {chaos.log}")
+    res = {"images_per_s": {"1_replica": rates[1], "2_replicas": rates[2]},
+           "requests": 48, "retries": st["retries"],
+           "failed_attempts": len(errors),
+           "evictions": {r: s["evictions"] for r, s in
+                         st["replicas"].items()},
+           "admissions": {r: s["admissions"] for r, s in
+                          st["replicas"].items()},
+           "evict_reason": evicts[0].fields["reason"],
+           "duplicates_suppressed": st["duplicates_suppressed"],
+           "chaos_fired": {k: chaos.fired(k) for k in ("kill", "poison")},
+           "executor_launches": dict(counter), "kernel_launches": launches,
+           "flight_dump": os.path.basename(dumps[-1]["path"])}
+    log("fleet of 2 GoogLeNet-224 replicas on one card under chaos, every "
+        "answer bit-exact, only ChaosErrors failed: " + json.dumps(res))
+    return res
+
+
+def serving_phase(models, prof, dev, card: str) -> dict:
+    """The serving plane on the card (phase 9)."""
+    import tempfile
+
+    from repro_torch.zoo import ModelZoo
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dnnvm-serve-") as tmp:
+        from repro_torch.obs.flight import FlightRecorder
+
+        compiled, zoo_res = zoo_phase(models, ModelZoo(
+            os.path.join(tmp, "zoo")))
+        log(f"model zoo on {card} (host seconds): " + json.dumps(zoo_res))
+        flight = FlightRecorder(dump_dir=os.path.join(tmp, "flight"),
+                                min_interval_s=0.5)
+        fleet_imgs = quantized_images(models["googlenet"], 8, SEED + 12)
+        res = multitenant_phase(compiled, models, prof, flight, dev)
+        sess = compiled["googlenet"].session(device=dev)
+        fleet_outs = [sess.run(x) for x in fleet_imgs]
+        res["fleet"] = fleet_phase(compiled["googlenet"].artifact,
+                                   fleet_imgs, fleet_outs,
+                                   os.path.join(tmp, "fleet"),
+                                   torch.device("cuda", 0))
+        res["zoo"] = zoo_res
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"serving phase took {res['seconds']:.1f} s")
+    return res
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1672,6 +2104,7 @@ def main() -> int:
     timing = timing_phase(models["googlenet"], dev)
     served = slice_phase(models, dev, card)
     tuned = tune_phase(models["googlenet"], dev, card)
+    serving = serving_phase(models, tuned.pop("profile"), dev, card)
     del models
     torch.cuda.empty_cache()
     flash_errs = flash_kernel_phase(dev)
@@ -1707,7 +2140,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": ("bytes" if t["bound_bytes_ms"] >= t["bound_ops_ms"]
                          else "operations"),
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            "serving_plane_launches": {
+                "multitenant": serving["multitenant"]["kernel_launches"][
+                    name],
+                "fleet": serving["fleet"]["kernel_launches"][name]}})
     kernels[0].update({
         "tuned_ms_per_image": tuned["chain_ms_per_image"]["tuned"],
         "untuned_ms_per_image": tuned["chain_ms_per_image"]["untuned"],
@@ -1756,6 +2193,7 @@ def main() -> int:
                   for arch in recurrent}})
     checked["artifact"] = served["artifact"]
     checked["tune"] = tuned
+    checked["serving_plane"] = serving
     checked["flash_max_abs_err"] = flash_errs
     checked["ssm_scan_err"] = scan_errs
     print(json.dumps({"kernels": kernels, "checked": checked,

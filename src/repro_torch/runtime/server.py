@@ -1,12 +1,13 @@
 """Serving front end: Session + DynamicBatcher + metrics.
 
-Port of ``src/repro/runtime/server.py`` without the flight recorder, the
-event log and the metrics endpoint.  ``Server.submit`` is the whole client
-API — hand in one int8 image, get a future for its output dict.  Queued
-requests are flushed as batches (see :mod:`repro_torch.runtime.batching`),
-each batch padded up to the nearest *allowed* size so only a handful of
-batch shapes is ever launched, and every completion is timestamped for the
-latency percentiles.
+Port of ``src/repro/runtime/server.py``.  ``Server.submit`` is the whole
+client API — hand in one int8 image, get a future for its output dict.
+Queued requests are flushed as batches (see
+:mod:`repro_torch.runtime.batching`), each batch padded up to the nearest
+*allowed* size so only a handful of batch shapes is ever launched, and every
+completion is timestamped for the latency percentiles.  Labelled metrics,
+the flight recorder, the event log and the OpenMetrics endpoint
+(``serve_metrics``) are the observability plane of ``repro_torch.obs``.
 """
 from __future__ import annotations
 
@@ -26,13 +27,26 @@ class Server:
     def __init__(self, session, *, max_batch: int = 8,
                  max_latency_s: float = 2e-3, allowed_sizes=None,
                  warmup: bool = True, target_p99_ms: float | None = None,
-                 slo_window: int = 64):
+                 slo_window: int = 64, labels: dict | None = None,
+                 observers=None, flight=None, events=None):
         """``target_p99_ms`` turns on latency-SLO-aware batch sizing: the
         server watches the p99 of the batcher's bounded latency window
         (last ``slo_window`` submit->result samples) and walks the effective
-        max batch down the allowed-size ladder while the SLO is violated,
-        then back up once p99 clears the target with margin.  ``max_batch``
-        stays the hard ceiling."""
+        max batch down the allowed-size ladder while the SLO is violated —
+        a smaller cap both shortens the batch-forming wait and the batched
+        launch itself — then back up once p99 clears the target with margin.
+        ``max_batch`` stays the hard ceiling.  ``labels`` tags every metric
+        this server emits (multi-tenant hosts label per-model).
+
+        ``observers`` forwards per-request completion observers to the
+        batcher (see :class:`~repro_torch.runtime.batching.DynamicBatcher`).
+        ``flight`` attaches an :class:`~repro_torch.obs.flight.FlightRecorder`:
+        the server binds it as an observer (tenant = ``labels["model"]``),
+        seeds its per-tenant context with the session's launched tile shapes
+        and the SLO target, and keeps request records stamped with the
+        drift profiler's latest state.  ``events`` overrides the shared
+        :data:`~repro_torch.obs.events.EVENTS` log the SLO resizer reports to."""
+        from repro_torch.obs import events as obs_events
         from repro_torch.obs import metrics as obs_metrics
         from repro_torch.runtime.batching import DynamicBatcher
 
@@ -49,14 +63,28 @@ class Server:
         self.slo_grows = 0
         # shrink causes, from the batcher's split timings: queue-bound means
         # the p99 violation lived in batch-forming wait, launch-bound in the
-        # batched execute itself
+        # batched execute itself (different remedies: the first wants a
+        # smaller forming window / more replicas, the second a smaller batch)
         self.slo_shrinks_queue_bound = 0
         self.slo_shrinks_launch_bound = 0
         self._registry = obs_metrics.REGISTRY
+        self._events = events if events is not None else obs_events.EVENTS
+        self.labels = dict(labels) if labels else None
+        self.flight = flight
+        self._obs_http = None
+        obs = list(observers) if observers else []
+        if flight is not None:
+            tenant = (self.labels or {}).get("model")
+            flight.set_context(tenant, tiles=session.tile_summary(),
+                               target_p99_ms=target_p99_ms,
+                               allowed_sizes=list(self.allowed_sizes))
+            obs.append(flight.bind(tenant=tenant,
+                                   drift_state=session.drift_state))
         if warmup:
             self._warmup()
         self._batcher = DynamicBatcher(self._run, max_batch=max_batch,
-                                       max_latency_s=max_latency_s)
+                                       max_latency_s=max_latency_s,
+                                       labels=self.labels, observers=obs)
 
     def _warmup(self) -> None:
         """Run every allowed batch shape once through the session's launch
@@ -94,7 +122,8 @@ class Server:
 
     def _recent_p99_ms(self, n_fresh: int) -> float | None:
         """p99 over the freshest ``n_fresh`` samples of the bounded window —
-        never over latencies recorded before the last cap change."""
+        never over latencies recorded before the last cap change, which
+        describe a batch size that no longer exists."""
         lats = list(self._batcher.latencies)[-min(self._slo_window, n_fresh):]
         if len(lats) < 4:
             return None
@@ -109,9 +138,11 @@ class Server:
         return "queue" if wait > execute else "launch"
 
     def _adjust_for_slo(self) -> None:
-        """Runs on the batcher worker before each launch.  Each cap change
-        starts a cooldown: no further move until enough requests have been
-        served *under the new cap* to judge it."""
+        """Runs on the batcher worker before each launch (single-threaded
+        with batch formation, so the cap never changes mid-batch).  Each cap
+        change starts a cooldown: no further move until enough requests have
+        been served *under the new cap* to judge it — otherwise one transient
+        violation cascades the cap straight to the floor on stale samples."""
         if self.target_p99_ms is None:
             return
         cur = self._batcher.max_batch
@@ -132,8 +163,24 @@ class Server:
                     self.slo_shrinks_queue_bound += 1
                 else:
                     self.slo_shrinks_launch_bound += 1
-                self._registry.counter(
-                    f"serve.slo_shrink.{cause}_bound").inc()
+                self._registry.counter(f"serve.slo_shrink.{cause}_bound",
+                                       self.labels).inc()
+                self._events.emit(
+                    "slo.resize", severity="warning",
+                    message=f"p99 {p99:.2f}ms over {self.target_p99_ms}ms "
+                            f"target; batch cap {cur} -> {smaller[-1]} "
+                            f"({cause}-bound)",
+                    direction="shrink", cause=cause, old_cap=cur,
+                    new_cap=smaller[-1], p99_ms=p99,
+                    target_p99_ms=self.target_p99_ms,
+                    **(self.labels or {}))
+                if self.flight is not None:
+                    self.flight.trigger(
+                        "slo_violation", tenant=(self.labels or {}).get("model"),
+                        detail={"p99_ms": p99,
+                                "target_p99_ms": self.target_p99_ms,
+                                "cause": cause, "old_cap": cur,
+                                "new_cap": smaller[-1]})
         elif p99 < 0.5 * self.target_p99_ms and cur < self.max_batch:
             bigger = [s for s in self.allowed_sizes
                       if cur < s <= self.max_batch]
@@ -141,7 +188,15 @@ class Server:
                 self._batcher.set_max_batch(bigger[0])
                 self._slo_mark = self._batcher.n_served
                 self.slo_grows += 1
-                self._registry.counter("serve.slo_grow").inc()
+                self._registry.counter("serve.slo_grow", self.labels).inc()
+                self._events.emit(
+                    "slo.resize", severity="info",
+                    message=f"p99 {p99:.2f}ms well under "
+                            f"{self.target_p99_ms}ms target; batch cap "
+                            f"{cur} -> {bigger[0]}",
+                    direction="grow", old_cap=cur, new_cap=bigger[0],
+                    p99_ms=p99, target_p99_ms=self.target_p99_ms,
+                    **(self.labels or {}))
 
     # ---------------------------------------------------------------- client
     def submit(self, x):
@@ -149,11 +204,31 @@ class Server:
 
     @property
     def pending(self) -> int:
-        """Requests queued but not yet formed into a batch."""
+        """Requests queued but not yet formed into a batch (the admission
+        and fleet-routing signal)."""
         return self._batcher.pending
+
+    def serve_metrics(self, host: str = "127.0.0.1", port: int = 0):
+        """Mount the OpenMetrics scrape endpoint (plus /flight, /events,
+        /snapshot, /explain) for this server's plane; returns the running
+        :class:`~repro_torch.obs.export.ObsHTTPServer` (closed with the server)."""
+        from repro_torch.obs.export import ObsHTTPServer
+        if self._obs_http is None:
+            self._obs_http = ObsHTTPServer(
+                self._registry, flight=self.flight, events=self._events,
+                host=host, port=port)
+            # /explain/<model>: the served session's compile report, joined
+            # with its live drift samples on every scrape
+            model = ((self.labels or {}).get("model")
+                     or self.session.graph.name)
+            self._obs_http.add_explain(model, self.session.explain)
+        return self._obs_http
 
     def close(self, wait: bool = True, timeout_s: float | None = None) -> None:
         self._batcher.close(wait=wait, timeout_s=timeout_s)
+        if self._obs_http is not None:
+            self._obs_http.close()
+            self._obs_http = None
 
     def __enter__(self):
         return self

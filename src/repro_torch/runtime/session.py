@@ -20,9 +20,9 @@ saved DNNVM object file with no recompilation.
 ``run`` serves one request; ``run_batch`` stacks N queued requests into one
 batched launch (one kernel grid covers all N images — the executor's batch
 dimension is free); ``serve`` wraps the session in the dynamic-batching
-:class:`~repro_torch.runtime.server.Server`.
-
-Not ported yet: drift (ROADMAP, Queue 1 item 5).
+:class:`~repro_torch.runtime.server.Server`.  An attached
+:class:`~repro_torch.obs.drift.DriftProfiler` counts every launch and
+re-times the plan's units every Nth (``attach_drift``).
 """
 from __future__ import annotations
 
@@ -71,7 +71,8 @@ class Session:
         self.outputs = [n.name for n in g if not g.consumers(n.name)]
         self.n_runs = 0
         self.images_served = 0
-        self._launch_hook = None        # optional pre-launch hook
+        self.drift = None               # optional DriftProfiler (attach_drift)
+        self._launch_hook = None        # optional pre-launch hook (chaos)
 
     @classmethod
     def from_artifact(cls, art, *, backend: str = "fused", cache=None,
@@ -124,11 +125,17 @@ class Session:
             x = torch.cat([x, x.new_zeros((pad_to - n,) + tuple(x.shape[1:]))])
         return x, n
 
+    def attach_drift(self, profiler) -> None:
+        """Attach an ``obs.DriftProfiler``; every ``run``/``run_batch`` then
+        counts as one observed launch (the profiler samples every Nth)."""
+        self.drift = profiler
+
     def set_launch_hook(self, fn) -> None:
         """Install (or with None, clear) a pre-launch hook: called with the
         stacked input batch immediately before every executor launch.  An
         exception raised here fails the launch exactly as an executor fault
-        would."""
+        would — the seam the chaos injector (``runtime.chaos``) uses to kill,
+        hang, slow, or poison one replica deterministically."""
         self._launch_hook = fn
 
     def _launch(self, x):
@@ -140,6 +147,12 @@ class Session:
                else contextlib.nullcontext())
         with ctx:
             return self.executor(x)
+
+    def drift_state(self) -> dict | None:
+        """The attached profiler's most recent summary (None when no drift
+        profiler is attached or it has not sampled yet) — what the flight
+        recorder stamps onto request records."""
+        return self.drift.last if self.drift is not None else None
 
     def tile_summary(self) -> list[dict]:
         """Launched tile shape per lowered unit.  ``tile`` is the searched
@@ -163,6 +176,8 @@ class Session:
         out = self._launch(x[None] if x.dim() == 3 else x)
         self.n_runs += 1
         self.images_served += 1
+        if self.drift is not None:
+            self.drift.observe_launch()
         return out
 
     def run_batch(self, xs, pad_to: int | None = None) -> list[dict]:
@@ -178,6 +193,8 @@ class Session:
             out = self._launch(x)
         self.n_runs += 1
         self.images_served += n
+        if self.drift is not None:
+            self.drift.observe_launch()
         return [{k: v[i:i + 1] for k, v in out.items()} for i in range(n)]
 
     # -------------------------------------------------------- schedule view
@@ -198,19 +215,43 @@ class Session:
 
     # --------------------------------------------------------------- explain
     def explain(self, *, render: bool = False):
-        """This session's compile-decision provenance: the artifact's
-        ``CompileReport`` (``repro_torch.explain``), or with
-        ``render=True`` its text rendering."""
+        """This session's compile-decision provenance, joined with live drift.
+
+        Returns the artifact's ``CompileReport`` (``repro_torch.explain``)
+        extended with a ``drift`` section when a
+        :class:`~repro_torch.obs.drift.DriftProfiler` is attached and has
+        samples: per-unit measured-vs-predicted seconds — the static plan's
+        predictions next to what this deployment actually measures.
+        ``render=True`` returns the text rendering instead."""
         from repro_torch.explain import render_report, report_of
         from repro_torch.obs.events import EVENTS
 
         rep = dict(report_of(self.artifact))
+        drift_rows = None
+        if self.drift is not None:
+            dr = self.drift.report()
+            drift_rows = [{
+                "key": u.key.replace("+", "|"),
+                "kind": u.kind,
+                "predicted": u.predicted,
+                "measured": u.measured,
+                "deviation": u.deviation,
+                "n_samples": u.n_samples,
+            } for u in dr.units]
+            rep["drift"] = {
+                "units": drift_rows,
+                "drifted": bool(dr.drifted),
+                "aggregate_deviation": dr.aggregate,
+                "profile_match": dr.profile_match,
+            }
         EVENTS.emit("explain.report",
-                    message=f"explain {rep['model']} (session)",
+                    message=f"explain {rep['model']} (session"
+                            f"{', with drift' if drift_rows else ''})",
                     model=rep["model"], device=rep["device"],
-                    degraded=rep.get("degraded", False), n_drift_units=0)
+                    degraded=rep.get("degraded", False),
+                    n_drift_units=len(drift_rows or []))
         if render:
-            return render_report(rep)
+            return render_report(rep, drift=drift_rows)
         return rep
 
     # -------------------------------------------------------------- serving

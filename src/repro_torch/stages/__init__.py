@@ -5,8 +5,8 @@ Each compiler phase is a first-class, content-hashed, individually-cacheable
 object (the JaCe stage protocol adapted to DNNVM's phases), so partial
 recompiles — re-tune tiles without re-running pathsearch, re-plan memory
 for a different DDR budget without re-searching — reuse upstream stages,
-and an on-disk model zoo can content-address object files (the
-reference's ``zoo`` is not ported yet: ROADMAP, Queue 1 item 6).
+and the on-disk model zoo (``repro_torch.zoo``) can content-address object
+files.
 
     from repro_torch.stages import wrap, compile_model
 

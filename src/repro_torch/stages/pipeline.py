@@ -4,11 +4,10 @@
 ``compile_model`` walks Wrapped -> Lowered -> Planned -> Compiled through a
 ``StageCache`` (the shared ``STAGE_CACHE`` by default), so a warm recompile
 of identical inputs hits all four stage caches and compiles nothing.  Given
-a zoo (any object with ``find_source`` and ``put``, as the reference's
-``zoo.ModelZoo``) it also consults the on-disk store first — keyed by a
-*source* fingerprint (wrapped key + profile + partition + plan knobs) that
-is computable before any search runs — and shelves fresh compilations under
-their content address.
+a ``repro_torch.zoo.ModelZoo`` it also consults the on-disk store first —
+keyed by a *source* fingerprint (wrapped key + profile + partition + plan
+knobs) that is computable before any search runs — and shelves fresh
+compilations under their content address.
 """
 from __future__ import annotations
 

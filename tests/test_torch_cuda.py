@@ -182,6 +182,85 @@ def test_tuned_session_bit_exact_on_card(dev):
     assert validate.bit_exact(g, qm, xq, s, device=dev)
 
 
+def test_drift_measures_on_card_against_its_own_calibration(dev):
+    """GoogLeNet-32 calibrated on the card, then a drift profiler with the
+    default measurement (CUDA-event device time, the executor's prepared
+    weights): every unit measured on the card, and a profile with doubled
+    coefficients (halved rates) drifts where the card's own does not."""
+    import dataclasses
+
+    from repro_torch import asm, tune
+    from repro_torch.hw import ZU2
+    from repro_torch.obs import DriftProfiler, MetricsRegistry
+    from repro_torch.runtime import Session
+    from torch_common import port_model
+    g, qm, xq = port_model("googlenet", 32)
+    prof = tune.calibrate(g, qm, ZU2, harness=tune.MeasurementHarness(
+        g, qm, ZU2, device=dev)).profile
+    sess = Session(g, strategy("repro_torch", g), ZU2, qm, device=dev,
+                   cache=asm.PlanCache())
+    halved = dataclasses.replace(prof, coef=tuple(2 * c for c in prof.coef))
+    reports = {}
+    for name, p in (("own", prof), ("halved", halved)):
+        dp = DriftProfiler.from_session(sess, profile=p, every=2,
+                                        registry=MetricsRegistry())
+        assert dp.device == sess.device
+        dp.prepare()
+        sess.attach_drift(dp)
+        ops.reset_counts()
+        for _ in range(2):
+            sess.run(xq)
+        torch.cuda.synchronize()
+        sess.attach_drift(None)
+        assert not any(ops.PLAIN_CALLS.values())
+        assert ops.LAUNCHES["fused_chain"] > 2 * len(
+            [it for it in sess.program.launches() if it.kind == "chain"])
+        reports[name] = dp.report()
+    own, bad = reports["own"], reports["halved"]
+    assert own.n_sampled == 1 and own.units
+    assert all(0 < u.measured < 1e-2 for u in own.units)
+    assert not own.drifted, own.aggregate
+    assert bad.drifted and bad.aggregate > bad.band
+
+
+def test_two_replica_fleet_on_one_card_bit_exact(dev):
+    """Two replicas wrapped onto one card under a chaos kill: every answer
+    equal to the session's, the only failed attempts the injected ones,
+    the kernels only."""
+    from repro_torch import asm
+    from repro_torch.hw import ZU2
+    from repro_torch.runtime import ChaosInjector, Fleet, Session
+    from torch_common import port_model
+    g, qm, _ = port_model("googlenet", 32)
+    art = asm.compile_strategy(g, strategy("repro_torch", g), ZU2, qm=qm)
+    sess = Session.from_artifact(art, device=dev, cache=asm.PlanCache())
+    rng = np.random.default_rng(5)
+    xs = [rng.integers(-128, 128, g.shape("data")[1:]).astype(np.int8)
+          for _ in range(16)]
+    wants = [sess.run(x) for x in xs]
+    fleet = Fleet(art, n_replicas=2, devices=[torch.device("cuda", 0)],
+                  check_interval_s=0.01, probe_interval_s=0.05)
+    chaos = ChaosInjector().attach(fleet)
+    try:
+        assert [r.session.device for r in fleet.replicas().values()] == \
+            [torch.device("cuda", 0)] * 2
+        ops.reset_counts()
+        chaos.kill("r1", after_launches=2)
+        futs = [fleet.submit(x) for x in xs]
+        for fut, want in zip(futs, wants):
+            got = fut.result(timeout=120)
+            for k in want:
+                assert torch.equal(got[k], want[k])
+        assert not any(ops.PLAIN_CALLS.values())
+        errors = [r for r in fleet.flight.records() if r.status == "error"]
+        assert all(r.error.startswith("ChaosError") for r in errors)
+        chaos.heal("r1")
+        assert fleet.wait_active("r1", timeout_s=30)
+    finally:
+        chaos.heal_all()
+        fleet.close()
+
+
 @pytest.mark.parametrize("shift", EXTREME_SHIFTS)
 def test_conv_kernels_match_plain_at_int32_extremes(dev, shift):
     """round_shift where the reference's int32 arithmetic wraps: biases

@@ -112,6 +112,68 @@ print("BAD", bad, inj.report["n_samples"] > 0,
     assert res.stdout.strip() == "BAD [] True True profile", res.stdout
 
 
+def test_cpu_serving_plane_never_loads_jax_or_reference(tmp_path):
+    """The serving plane on the CPU: two tenants compiled into a model zoo
+    and reopened from it, a ``MultiServer`` with a drift profiler and its
+    scrape endpoint, then a two-replica ``Fleet`` under a chaos kill, with
+    no jax in the process."""
+    code = """
+import sys, urllib.request
+import numpy as np
+import torch
+from functools import partial
+from repro_torch import stages
+from repro_torch.cnn import build, init_params
+from repro_torch.core import executor, quantize
+from repro_torch.core.cost import SimulatorEvaluator
+from repro_torch.hw import ZU2
+from repro_torch import tune
+from repro_torch.obs.export import find_samples, parse_openmetrics
+from repro_torch.runtime import ChaosInjector, Fleet, MultiServer
+from repro_torch.zoo import ModelZoo
+zoo = ModelZoo(sys.argv[1])
+compiled, xs = {}, {}
+for name in ("googlenet", "resnet50"):
+    g = build(name, img=32, num_classes=10)
+    x = np.random.default_rng(0).standard_normal(g.shape("data"))
+    qm = quantize.calibrate(g, init_params(g), x.astype("float32"),
+                            partial(executor.run_float, device="cpu"))
+    stages.compile_model(g, qm, ZU2, zoo=zoo, name=name)
+    compiled[name] = stages.compile_model(
+        g, qm, ZU2, zoo=zoo, cache=stages.StageCache())
+    xs[name] = quantize.quantize_to(x, qm.f_a["data"])[0]
+sim = SimulatorEvaluator(g, ZU2)
+with MultiServer() as ms:
+    for name in compiled:
+        ms.add_model(name, compiled[name], warmup=False,
+                     session_kw={"device": "cpu"})
+    prof = tune.calibrate(g, qm, ZU2, measure_fn=lambda grp: sim(grp),
+                          features="analytic").profile
+    dp = ms.attach_drift("resnet50", profile=prof, every=1, repeats=1)
+    outs = [ms.submit(name, xs[name]).result(60) for name in compiled]
+    http = ms.serve_metrics()
+    fams = parse_openmetrics(urllib.request.urlopen(
+        http.url("/metrics")).read().decode())
+fleet = Fleet(compiled["googlenet"].artifact, n_replicas=2,
+              devices=[torch.device("cpu")], check_interval_s=0.01)
+chaos = ChaosInjector().attach(fleet)
+chaos.kill("r1")
+got = [fleet.submit(xs["googlenet"]).result(60) for _ in range(4)]
+chaos.heal_all()
+fleet.close()
+same = all(bool((o["prob"] == outs[0]["prob"]).all()) for o in got)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad, len(zoo), dp.n_sampled,
+      bool(find_samples(fams, "serve_requests", model="resnet50")), same)
+"""
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path / "zoo")],
+                         capture_output=True, text=True, env=_env(),
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "BAD [] 2 1 True True", res.stdout
+
+
 def test_cpu_lm_path_never_loads_jax_or_reference():
     code = """
 import dataclasses, sys
@@ -194,6 +256,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         executor.Int8Executor(g, qm, backend="fused")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         executor.run_float(g, {}, None)
+
+
+def test_serving_plane_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """``Fleet()`` with no devices and ``MultiServer.add_model`` of an
+    artifact with no device open their sessions on CUDA, and raise where it
+    is absent."""
+    import torch
+
+    from repro_torch import asm
+    from repro_torch.hw import ZU2
+    from repro_torch.runtime import Fleet, MultiServer
+    from torch_common import port_model, strategy
+
+    g, qm, _ = port_model("toy", 16)
+    art = asm.compile_strategy(g, strategy("repro_torch", g), ZU2, qm=qm)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Fleet(art)
+    with MultiServer() as ms:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ms.add_model("toy", art, warmup=False)
+        assert ms.models() == []
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
