@@ -126,6 +126,47 @@ Phases (any failure raises and the script exits non-zero):
    the kernel launches again 42 + 9 per executor launch; the fleet's
    images/s at 1 and 2 replicas (host clock).
 
+10. Seamless-m4t-large-v2 served at full width and depth (24 encoder and
+    24 decoder layers, d_model 1024, d_ff 8192, vocab 256206, random bf16
+    weights from seed 0; attention ``xla`` as in the reference, so no
+    kernel): ``make_prefill_step`` on a 4x2048 prefill split by
+    ``ENC_FRACTION["prefill"]`` (1792 frames, 256 tokens; no launch, no
+    plain call), the ``serve`` loop (a 4x128 prompt, 32 greedy steps,
+    ``api.init_cache``'s 4096-frame cross cache); at full width and 2+2
+    layers in fp32, teacher-forced ``decode_step`` from a cache filled from
+    ``encode``'s output against the prefill at 1e-3.
+11. The scan's backward on the card (TF32 off): every route (bf16 on the
+    tensor cores, fp32 and fp16) through ``ScanFunction`` at xLSTM-1.3B's
+    and Zamba2-1.2B's shapes at a 2x2048 training microbatch (Zamba2's q
+    and k broadcast with stride 0), a ragged S=200 and K != V: fp32
+    gradients against autograd through ``chunked_linear_scan`` at
+    ``BW_FP32_TOL``, bf16 and fp16 no farther from the fp32 ones than 1.25
+    times plain autograd in the same dtype; 4 launches and 1 backward call
+    each, no plain call; beside them, the bf16 route with dq and dk
+    rounded to bf16 before the d log_a reduction, its d log_a distance
+    logged against plain autograd's (no check); the kernels' gradient of
+    the leaves timed at both model shapes beside the plain autograd
+    backward and the function's bound.
+12. Training at full width: (a) Zamba2-1.2B, all 38 layers, bf16 params and
+    moments, fp32 gradient buffers, ``make_train_step`` with
+    ``grad_accum=2`` on ``SyntheticLM`` batches of 4x2048 for 8 steps
+    (each step 380 scan launches and 76 backward calls: forward, remat
+    recompute and three backward scans per layer and microbatch; no plain
+    call), every loss finite, every gradient leaf finite and nonzero and
+    each Mamba2 layer's ``w_in``, ``w_out``, ``w_bcdt`` and ``a_log``
+    gradient nonzero, an async checkpoint at step 4 restored onto a
+    ``meta`` template bit-equal leaf by leaf with the data cursor resumed,
+    steps/s and tokens/s, one step profiled; (b) Seamless-m4t-large-v2, 2
+    steps on 2x2048 (1024 frames, 1024 tokens), every gradient leaf finite
+    and nonzero; (c) Zamba2 at full width and 1 layer with its shared
+    block in fp32, one train step through the kernels against the same
+    step with the plain scan under autograd, gradients and updated params
+    at ``STEP_FP32_TOL``; (d) xLSTM-1.3B, all 48 layers (42 mLSTM, 6
+    sLSTM), bf16, 2 steps on 2x2048 (each 210 scan launches and 42
+    backward calls, no plain call), every loss finite, every gradient leaf
+    finite and nonzero, each mLSTM layer's ``w_up``, ``w_qkg`` and
+    ``w_down`` gradient nonzero.
+
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1881,8 +1922,8 @@ def recurrent_slice_phase(arch: str, dev, card: str) -> dict:
     reset_all_counts()                        # ---- main path starts here
     logits, prefill_s = timed(lambda: prefill(params, {"tokens": tokens}))
     launches, plain = all_counts()            # ---- main path ends here
-    want_launches = {"fused_chain": 0, "fused_horizontal": 0,
-                     "flash_attention": 0, "ssm_scan": _n_scans(cfg)}
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches["ssm_scan"] = _n_scans(cfg)
     if launches != want_launches or any(plain.values()):
         raise AssertionError(f"{arch} prefill: launches {launches}, plain "
                              f"calls {plain}")
@@ -2059,12 +2100,616 @@ def depth_check(arch: str, cfg, fields: dict, toks, dev) -> dict:
             "bf16_err_vs_fp32": {"kernel": e_kernel, "plain": e_plain}}
 
 
+# ---------------------------------------------------------------- phase 10
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_PREFILL = (4, 2048)        # batch, frames + tokens (ENC_FRACTION)
+SEAMLESS_DEPTH = {"n_layers": 2, "enc_layers": 2}
+
+
+@torch.inference_mode()
+def seamless_phase(dev, card: str) -> dict:
+    """Seamless-m4t-large-v2 served at full width and depth (phase 10)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.nn import encdec
+
+    cfg = configs.get(SEAMLESS)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _flat(params))
+    log(f"{SEAMLESS} at full width and depth on the card: {n_params} "
+        f"parameters (bf16) drawn in {time.perf_counter() - t0:.1f} s")
+    B, S = SEAMLESS_PREFILL
+    se = int(S * api.ENC_FRACTION["prefill"])
+    sd = S - se
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    frames = torch.randn((B, se, cfg.d_model), generator=gen, device=dev)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, sd)), device=dev)
+    prefill = serve.make_prefill_step(cfg)
+    prefill(params, {"frames": frames[:, :64], "tokens": tokens[:, :8]})
+
+    reset_all_counts()                        # ---- main path starts here
+    logits, prefill_s = timed(lambda: prefill(
+        params, {"frames": frames, "tokens": tokens}))
+    launches, plain = all_counts()            # ---- main path ends here
+    if any(launches.values()) or any(plain.values()):
+        raise AssertionError(f"{SEAMLESS} prefill runs no kernel: launches "
+                             f"{launches}, plain calls {plain}")
+    if tuple(logits.shape) != (B, sd, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    del logits
+    log(f"{SEAMLESS} prefill {B}x{S} ({se} frames + {sd} tokens): "
+        f"{prefill_s * 1e3:.1f} ms, {B * S / prefill_s:.0f} positions/s")
+
+    prompt = rng.integers(0, cfg.vocab, (B, 128))
+    serve.serve_loop(cfg, params, prompt[:, :8], 4, dev)      # warm-up
+    reset_all_counts()
+    served = serve.serve_loop(cfg, params, prompt, 32, dev)
+    if any(all_counts()[0].values()) or any(all_counts()[1].values()) \
+            or served["tokens"].shape != (B, 32) \
+            or not ((0 <= served["tokens"]).all()
+                    and (served["tokens"] < cfg.vocab).all()):
+        raise AssertionError(f"{SEAMLESS} serve loop: "
+                             f"{served['tokens'].shape}, counts "
+                             f"{all_counts()}")
+    pbd_tps = B * 127 / served["prefill_s"]
+    dec_tps = B * 32 / served["decode_s"]
+    log(f"{SEAMLESS} serve loop (batch {B}, {api.SEAMLESS_DECODE_ENC_LEN}-"
+        f"frame cross cache): prefill-by-decode of 127 tokens {pbd_tps:.1f} "
+        f"tokens/s, 32 greedy steps {dec_tps:.1f} tokens/s "
+        f"({served['decode_s'] / 32 * 1e3:.2f} ms/step)")
+    del params
+    torch.cuda.empty_cache()
+
+    # full width, cut depth, fp32: teacher-forced decode against prefill,
+    # the cross cache filled from the encoder's output
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **SEAMLESS_DEPTH)
+    p32 = api.init_params(cfg32, torch.Generator(device=dev).manual_seed(
+        SEED + 1), dev)
+    fr, short = frames[:, :256], tokens[:, :128]
+    enc = encdec.encode(cfg32, p32, fr)
+    full = encdec.decode_train(cfg32, p32, enc, short)
+    cache = encdec.init_cache(cfg32, B, short.shape[1], fr.shape[1], dev,
+                              enc_out=enc, params=p32)
+    dec = []
+    for t in range(short.shape[1]):
+        lg, cache = api.decode_step(cfg32, p32, cache, short[:, t], t)
+        dec.append(lg)
+    err_dec = float((torch.stack(dec, 1) - full).abs().max())
+    if not err_dec <= FP32_DECODE_TOL:
+        raise AssertionError(f"{SEAMLESS} fp32 decode vs prefill: {err_dec}"
+                             f" > {FP32_DECODE_TOL}")
+    log(f"{SEAMLESS} full width, 2+2 layers, fp32: teacher-forced decode vs "
+        f"prefill ({B}x128 against 256 frames) max |diff| {err_dec} "
+        f"(largest |logit| {float(full.abs().max())})")
+    del p32, cache, enc, full, dec
+    torch.cuda.empty_cache()
+    return {"card": card, "params": n_params, "prefill_ms": prefill_s * 1e3,
+            "prefill_positions_per_s": B * S / prefill_s,
+            "prefill_frames": se, "prefill_tokens": sd,
+            "prefill_by_decode_tokens_per_s": pbd_tps,
+            "decode_tokens_per_s": dec_tps, "fp32_decode_err": err_dec}
+
+
+def _flat(tree) -> list:
+    from repro_torch.core.tree import leaves
+
+    return leaves(tree)
+
+
+# ---------------------------------------------------------------- phase 11
+# the scan backward's cases: the model shapes at a training microbatch of
+# 2 x 2048, a ragged S and K != V
+BW_CASES = {
+    "xlstm train": (2, 2048, 4, 1024, 1024, False),
+    "zamba2 train": (2, 2048, 32, 64, 128, True),
+    "ragged S=200": (4, 200, 4, 64, 96, False),
+    "K != V": (2, 256, 2, 40, 24, False),
+}
+# fp32 route's gradients against plain autograd through
+# chunked_linear_scan, relative to each gradient's largest value (row by
+# row for dq, dk, dv; over the whole (B, S, H) tensor for d log_a): the
+# forward's 2e-4 (the JAX package's Pallas tolerance).  Each gradient is one
+# fp32 scan, d log_a a sum over S of their products; the H100 gave at most
+# 2.6e-5.  A whole fp32 train step of Zamba2 (12c) carries that rounding
+# through the model to every gradient and, by one Adam step, every
+# parameter: its leaves are held at 1e-3 of their largest value (2.2e-4
+# measured)
+BW_FP32_TOL = 2e-4
+STEP_FP32_TOL = 1e-3
+# bf16 and fp16 routes: each gradient no farther from the fp32 one than
+# 1.25 times the plain autograd's in the same dtype
+BW_VS_PLAIN = 1.25
+GRAD_NAMES = ("dq", "dk", "dv", "dlog_a")
+
+
+def leaf_rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def grad_rel_err(got, want) -> float:
+    """Row-relative for a (B, S, H, X) gradient (``row_rel_err``), and
+    relative to the largest |value| of the whole tensor for d log_a."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+
+    if want.dim() == 4:
+        return scan.row_rel_err(got, want)
+    return leaf_rel_err(got, want)
+
+
+def bw_inputs(case, dtype, dev, seed):
+    """Leaves q0, k0 (one head where the case broadcasts them), v, log_a
+    requiring grad, the q, k the scan sees (expanded over the heads), and
+    the upstream gradient dy."""
+    b, s, h, dk, dv, bcast = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hq = 1 if bcast else h
+    q0, k0 = ((torch.randn((b, s, hq, dk), generator=gen, device=dev)
+               / dk ** 0.5).to(dtype).requires_grad_(True) for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=gen, device=dev).to(
+        dtype).requires_grad_(True)
+    la = torch.nn.functional.logsigmoid(torch.randn(
+        (b, s, h), generator=gen, device=dev)).requires_grad_(True)
+    dy = torch.randn((b, s, h, dv), generator=gen, device=dev).to(dtype)
+    return (q0, k0, v, la), (q0.expand(b, s, h, dk), k0.expand(b, s, h, dk)),\
+        dy
+
+
+def scan_grads(case, dtype, dev, seed, plain: bool, scan_fn=None):
+    """(dq0, dk0, dv, d log_a) of <scan(q, k, v, log_a), dy>: through the
+    wrapper (the kernels and ``ScanFunction`` on the card), through
+    ``ScanFunction`` with ``scan_fn`` in place of ``kernel_scan`` or, with
+    ``plain``, through ``chunked_linear_scan`` under autograd."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
+
+    leaves_, (q, k), dy = bw_inputs(case, dtype, dev, seed)
+    v, la = leaves_[2], leaves_[3]
+    if plain:
+        y = chunked_linear_scan(q, k, v, la, chunk=chunk_for(case[1]))[0]
+    elif scan_fn is not None:
+        y = scan.ScanFunction.apply(q, k, v, la, scan_fn)
+    else:
+        y = scan.ssm_scan(q, k, v, la, chunk=chunk_for(case[1]))
+    return torch.autograd.grad(y, leaves_, dy)
+
+
+def bw_work(case, elem_bytes: int) -> tuple[int, int]:
+    """(bytes, FLOPs) the backward needs, the least work of the function
+    (dq0, dk0, dv, d log_a) of (q0, k0, v, log_a, dy): each input read once
+    and each gradient written once in its own dtype (q0, k0 and their
+    gradients on one head where the case broadcasts them; log_a and
+    d log_a fp32); the step-by-step recurrence's backward, 10 K V per step
+    and head (2 K V each: recomputing S_t, dq_t = S_t dy_t, dS_t = q_t
+    dy_t^T + a_{t+1} dS_{t+1}, dk_t = dS_t v_t, dv_t = dS_t^T k_t), and 4 K
+    for d log_a's sum of q . dq - k . dk."""
+    b, s, h, dk, dv, bcast = case
+    hq = 1 if bcast else h
+    nbytes = (elem_bytes * (4 * b * s * hq * dk + 3 * b * s * h * dv)
+              + 2 * 4 * b * s * h)
+    return nbytes, 10 * b * s * h * dk * dv + 4 * b * s * h * dk
+
+
+def bw_impl_work(case, elem_bytes: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of the backward as ``scan_backward`` does it, for
+    comparison with ``bw_work``: three scans (each at ``scan_work``, with
+    every operand per head: the reversed ones are copies) and the fp32
+    reduction, which reads q, dq, k and dk once and writes d log_a."""
+    b, s, h, dk, dv, _ = case
+    scan_b, scan_f = scan_work((b, s, h, dk, dv, False), elem_bytes)
+    red_b = 4 * elem_bytes * b * s * h * dk + 4 * b * s * h
+    return 3 * scan_b + red_b, 3 * scan_f + 4 * b * s * h * dk
+
+
+def rounded_dqdk(q, k, v, log_a, out_dtype=None):
+    """``kernel_scan`` whose dq and dk come rounded to the inputs' dtype
+    (then widened to ``out_dtype``): the backward as it would be without
+    the bf16 route's fp32 outputs."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+
+    y = scan.kernel_scan(q, k, v, log_a)
+    return y if out_dtype is None else y.to(out_dtype)
+
+
+def scan_backward_phase(dev) -> dict:
+    """The scan's backward on the card (phase 11): every route against
+    plain autograd, then the bf16 route timed at both model shapes."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for i, (name, case) in enumerate(BW_CASES.items()):
+        want = scan_grads(case, torch.float32, dev, SEED + i, plain=True)
+        reset_all_counts()
+        got = scan_grads(case, torch.float32, dev, SEED + i, plain=False)
+        launches, plain = all_counts()
+        if launches["ssm_scan_backward"] != 1 or \
+                launches["ssm_scan"] != 4 or any(plain.values()):
+            raise AssertionError(f"scan backward {name}: launches "
+                                 f"{launches}, plain calls {plain}")
+        rel = {g: grad_rel_err(a, w) for g, a, w in zip(GRAD_NAMES, got,
+                                                        want)}
+        errs[f"{name} float32"] = rel
+        if not all(e <= BW_FP32_TOL for e in rel.values()) or not all(
+                bool(torch.isfinite(a).all()) for a in got):
+            raise AssertionError(f"scan backward {name} fp32: {rel} > "
+                                 f"{BW_FP32_TOL}")
+        for dtype in (torch.bfloat16, torch.float16):
+            kern = scan_grads(case, dtype, dev, SEED + i, plain=False)
+            ref = scan_grads(case, dtype, dev, SEED + i, plain=True)
+            e_k = {g: grad_rel_err(a, w) for g, a, w in zip(GRAD_NAMES, kern,
+                                                            want)}
+            e_p = {g: grad_rel_err(a, w) for g, a, w in zip(GRAD_NAMES, ref,
+                                                            want)}
+            errs[f"{name} {str(dtype)[6:]}"] = {"kernel": e_k, "plain": e_p}
+            bad = [g for g in GRAD_NAMES
+                   if not e_k[g] <= BW_VS_PLAIN * e_p[g]]
+            if bad or not all(bool(torch.isfinite(a).all()) for a in kern):
+                raise AssertionError(
+                    f"scan backward {name} {dtype}: {bad} farther from fp32 "
+                    f"than {BW_VS_PLAIN} x plain autograd's: kernel {e_k}, "
+                    f"plain {e_p}")
+            if dtype == torch.bfloat16:
+                dla = scan_grads(case, dtype, dev, SEED + i, plain=False,
+                                 scan_fn=rounded_dqdk)[3]
+                e_r = grad_rel_err(dla, want[3])
+                errs[f"{name} bfloat16"]["dlog_a with bf16 dq, dk"] = {
+                    "err": e_r, "vs_plain": e_r / e_p["dlog_a"],
+                    "vs_kernel": e_r / e_k["dlog_a"]}
+                del dla
+            del kern, ref
+        del want, got
+    log("ssm_scan backward == plain autograd on the card (fp32 within "
+        f"{BW_FP32_TOL} row-relative; bf16 and fp16 against the fp32 "
+        f"gradients, kernel beside plain autograd in the same dtype; for "
+        f"bf16 also d log_a from dq, dk rounded to bf16, unchecked): "
+        + json.dumps(errs))
+
+    out = {"errors": errs}
+    for arch, case in (("xlstm-1.3b", BW_CASES["xlstm train"]),
+                       ("zamba2-1.2b", BW_CASES["zamba2 train"])):
+        leaves_, (q, k), dy = bw_inputs(case, torch.bfloat16, dev, SEED)
+        v, la = leaves_[2], leaves_[3]
+        y = scan.ssm_scan(q, k, v, la, chunk=chunk_for(case[1]))
+        ms = device_ms(lambda: torch.autograd.grad(
+            y, leaves_, dy, retain_graph=True), reps=5)
+        y = chunked_linear_scan(q, k, v, la, chunk=chunk_for(case[1]))[0]
+        plain_ms = device_ms(lambda: torch.autograd.grad(
+            y, leaves_, dy, retain_graph=True), reps=3)
+        del y
+        nbytes, flops = bw_work(case, 2)
+        impl_bytes, impl_flops = bw_impl_work(case, 2)
+        t_bytes, t_ops = 1e3 * nbytes / MEM_BW, 1e3 * flops / BF16_PEAK
+        rec = {"ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops, "library_ms": None,
+               "impl_bytes": impl_bytes, "impl_flops": impl_flops}
+        out[arch] = rec
+        log(f"ssm_scan backward at {arch}'s training shape {case[:5]}, bf16 "
+            f"(the gradient of q0, k0, v, log_a through ScanFunction: three "
+            f"kernel scans + the d log_a reduction; bound: the function's "
+            f"least work; impl_*: the three scans' and the reduction's): "
+            + json.dumps(rec))
+        del leaves_, q, k, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+ZAMBA = "zamba2-1.2b"
+TRAIN_BATCH = (4, 2048)         # rows, sequence
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 8
+CKPT_STEP = 4
+# leaves that only the scan's gradient reaches in a Mamba2 layer (B, C and
+# dt come out of w_bcdt; a_log sets the decay), beside its in/out
+# projections: each layer's slice of each must have a nonzero gradient
+MAMBA_LEAVES = ("w_in", "w_out", "w_bcdt", "a_log")
+ZAMBA_DEPTH = {"n_layers": 1, "shared_attn_every": 1}
+SEAMLESS_TRAIN = (2, 2048, 2)   # rows, frames + tokens, steps
+XLSTM = "xlstm-1.3b"
+XLSTM_TRAIN = (2, 2048, 2)      # rows, sequence, steps
+# the leaves of an mLSTM block, each of whose layers' slices must have a
+# nonzero gradient (w_qkg's q and k columns reach the loss only through the
+# scan)
+MLSTM_LEAVES = ("w_up", "w_qkg", "w_down")
+
+
+def _named(tree, prefix="") -> dict:
+    out = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out.update(_named(tree[k], f"{prefix}{k}."))
+        else:
+            out[prefix + k] = tree[k]
+    return out
+
+
+def check_grads(grads, what: str) -> dict:
+    """Every gradient leaf finite; the norm of each leaf, of which none may
+    be zero (every leaf of these models is reached by the loss)."""
+    norms = {n: float(g.float().norm()) for n, g in _named(grads).items()}
+    bad = [n for n, g in _named(grads).items()
+           if not bool(torch.isfinite(g).all())]
+    zero = [n for n, v in norms.items() if not v > 0]
+    if bad or zero:
+        raise AssertionError(f"{what}: non-finite gradient leaves {bad}, "
+                             f"zero-norm leaves {zero}")
+    return norms
+
+
+def zamba_training(dev, card: str) -> dict:
+    """Zamba2-1.2B at full width and depth trained 8 steps (phase 12a)."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+
+    cfg = configs.get(ZAMBA)
+    B, S = TRAIN_BATCH
+    state = train.init_state(cfg, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    data = SyntheticLM(vocab=cfg.vocab, batch=B, seq=S, family=cfg.family,
+                       d_model=cfg.d_model, device=dev)
+    step_fn = train.make_train_step(cfg, grad_accum=TRAIN_ACCUM)
+    n_mamba = cfg.n_layers
+    per_step = {"ssm_scan_backward": n_mamba * TRAIN_ACCUM,
+                "ssm_scan": 5 * n_mamba * TRAIN_ACCUM}
+    losses, step_s, counts, batches = [], [], None, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(tmp)
+        for i in range(TRAIN_STEPS):
+            batch = data.next()
+            batches[i] = batch["tokens"]
+            torch.cuda.synchronize()
+            reset_all_counts()                # ---- main path starts here
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            launches, plain = all_counts()    # ---- main path ends here
+            want = dict.fromkeys(launches, 0)
+            want.update(per_step)
+            if launches != want or any(plain.values()):
+                raise AssertionError(f"{ZAMBA} train step {i + 1}: launches "
+                                     f"{launches} (want {want}), plain calls"
+                                     f" {plain}")
+            counts = launches
+            loss = float(metrics["loss"])
+            if not np.isfinite(loss):
+                raise AssertionError(f"{ZAMBA} step {i + 1}: loss {loss}")
+            losses.append(loss)
+            if i == 0:
+                norms = check_grads(metrics["grads"], f"{ZAMBA} step 1")
+                layer_norms = {n: metrics["grads"]["mamba"][n].float().flatten(
+                    1).norm(dim=1) for n in MAMBA_LEAVES}
+                dead = {n: int((v == 0).sum()) for n, v in
+                        layer_norms.items() if not bool((v > 0).all())}
+                if dead:
+                    raise AssertionError(f"{ZAMBA}: Mamba2 layers with a zero "
+                                         f"gradient: {dead}")
+            del metrics
+            if i + 1 == CKPT_STEP:
+                t0 = time.perf_counter()
+                store.save(state, step=CKPT_STEP, async_write=True,
+                           extra={"data": data.state()})
+                save_s = time.perf_counter() - t0
+                saved = state
+        t0 = time.perf_counter()
+        store.wait()
+        wait_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, at = store.restore_latest(train.abstract_state(cfg), dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    diff = [n for n, (a, b) in enumerate(zip(_flat(saved), _flat(restored)))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+    resumed = SyntheticLM(vocab=cfg.vocab, batch=B, seq=S, family=cfg.family,
+                          d_model=cfg.d_model, device=dev)
+    resumed.seek(at)
+    if at != CKPT_STEP or diff or not torch.equal(
+            resumed.next()["tokens"], batches[CKPT_STEP]):
+        raise AssertionError(f"{ZAMBA} checkpoint at step {at}: leaves "
+                             f"{diff} differ, or the data cursor did not "
+                             f"resume")
+    n_leaves = len(_flat(saved))
+    del saved, restored, resumed
+    prof = profile_device(lambda: step_fn(state, data.batch_at(0)), 1,
+                          "zamba2_train_step_trace.json")
+    steady = step_s[1:]
+    rec = {"card": card, "losses": losses, "step_s": step_s,
+           "steps_per_s": len(steady) / sum(steady),
+           "tokens_per_s": B * S * len(steady) / sum(steady),
+           "launches_per_step": counts, "grad_norms_step1": norms,
+           "checkpoint": {"leaves": n_leaves, "save_return_s": save_s,
+                          "wait_s": wait_s, "restore_s": restore_s},
+           "train_step_profile": prof}
+    log(f"{ZAMBA} training at full width and depth ({B}x{S}, grad_accum "
+        f"{TRAIN_ACCUM}, bf16 params and moments, fp32 grad buffers): "
+        f"losses {losses}; {rec['steps_per_s']:.3f} steps/s, "
+        f"{rec['tokens_per_s']:.0f} tokens/s after the first step; launches "
+        f"per step {counts}; checkpoint at step {CKPT_STEP}: "
+        f"{n_leaves} leaves restored bit-equal, data cursor resumed; "
+        + json.dumps({k: rec[k] for k in ("checkpoint", "train_step_profile")}))
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seamless_training(dev, card: str) -> dict:
+    """Seamless-m4t-large-v2 at full width trained 2 steps (phase 12b)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+
+    cfg = configs.get(SEAMLESS)
+    B, S, steps = SEAMLESS_TRAIN
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = train.init_state(cfg, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    data = SyntheticLM(vocab=cfg.vocab, batch=B, seq=S, family=cfg.family,
+                       d_model=cfg.d_model, device=dev)
+    step_fn = train.make_train_step(cfg)
+    losses, step_s = [], []
+    for i in range(steps):
+        batch = data.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"{SEAMLESS} step {i + 1}: loss {losses[-1]}")
+        check_grads(metrics["grads"], f"{SEAMLESS} step {i + 1}")
+        del metrics
+    frames, tokens = batch["frames"].shape[1], batch["tokens"].shape[1]
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"{SEAMLESS} training at full width ({B}x{S}: {frames} frames + "
+        f"{tokens} tokens; bf16 grads, bf16 moments): losses {losses}, every "
+        f"gradient leaf finite and nonzero; step seconds {step_s}; peak "
+        f"device memory {peak / 2**30:.1f} GiB")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": step_s, "frames": frames,
+            "tokens": tokens, "peak_bytes": peak}
+
+
+def xlstm_training(dev, card: str) -> dict:
+    """xLSTM-1.3B at full width and depth trained 2 steps (phase 12d): the
+    mLSTM scans' backward under remat beside the sLSTM loops' autograd."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.nn import xlstm
+
+    cfg = configs.get(XLSTM)
+    B, S, steps = XLSTM_TRAIN
+    n_mlstm = xlstm._counts(cfg)[1]
+    per_step = {"ssm_scan_backward": n_mlstm, "ssm_scan": 5 * n_mlstm}
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = train.init_state(cfg, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    data = SyntheticLM(vocab=cfg.vocab, batch=B, seq=S, family=cfg.family,
+                       device=dev)
+    step_fn = train.make_train_step(cfg)
+    losses, step_s = [], []
+    for i in range(steps):
+        batch = data.next()
+        torch.cuda.synchronize()
+        reset_all_counts()                    # ---- main path starts here
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches, plain = all_counts()        # ---- main path ends here
+        want = dict.fromkeys(launches, 0)
+        want.update(per_step)
+        if launches != want or any(plain.values()):
+            raise AssertionError(f"{XLSTM} train step {i + 1}: launches "
+                                 f"{launches} (want {want}), plain calls "
+                                 f"{plain}")
+        losses.append(float(metrics["loss"]))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"{XLSTM} step {i + 1}: loss {losses[-1]}")
+        check_grads(metrics["grads"], f"{XLSTM} step {i + 1}")
+        dead = {n: int((metrics["grads"]["mlstm"][n].float().flatten(1).norm(
+            dim=1) == 0).sum()) for n in MLSTM_LEAVES}
+        if any(dead.values()):
+            raise AssertionError(f"{XLSTM}: mLSTM layers with a zero "
+                                 f"gradient: {dead}")
+        del metrics
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = {"card": card, "losses": losses, "step_s": step_s,
+           "tokens_per_s": B * S / step_s[-1], "launches_per_step": launches,
+           "peak_bytes": peak}
+    log(f"{XLSTM} training at full width and depth ({B}x{S}, bf16 params, "
+        f"grads in fp32 buffers, bf16 moments): losses {losses}, every "
+        f"gradient leaf finite and nonzero; step seconds {step_s}; launches "
+        f"per step {launches}; peak device memory {peak / 2**30:.1f} GiB")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def zamba_step_check(dev) -> dict:
+    """One fp32 train step of Zamba2 at full width and a cut depth through
+    the kernels, against the same step with the plain scan under autograd
+    (phase 12c): gradients and updated params, leaf by leaf, at
+    ``STEP_FP32_TOL``.  (The same step from a state carried from the JAX
+    package is held to that package's step in the CPU tests: this machine
+    has no jax.)"""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get(ZAMBA), dtype="float32",
+                              **ZAMBA_DEPTH)
+    state = train.init_state(cfg, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 1), device=dev)
+    batch = SyntheticLM(vocab=cfg.vocab, batch=2, seq=512, family=cfg.family,
+                        device=dev).next()
+    step_fn = train.make_train_step(cfg)
+    reset_all_counts()
+    got, gm = step_fn(state, batch)
+    launches = all_counts()[0]
+    with plain_scan():
+        want, wm = step_fn(state, batch)
+    if launches["ssm_scan_backward"] != cfg.n_layers:
+        raise AssertionError(f"{ZAMBA} cut-depth step: launches {launches}")
+    errs = {"grad": {}, "param": {}}
+    for n, g in _named(gm["grads"]).items():
+        errs["grad"][n] = leaf_rel_err(g, _named(wm["grads"])[n])
+    for n, p in _named(got["params"]).items():
+        errs["param"][n] = leaf_rel_err(p, _named(want["params"])[n])
+    worst = {k: max(v.values()) for k, v in errs.items()}
+    if not all(e <= STEP_FP32_TOL for v in errs.values() for e in v.values()):
+        raise AssertionError(f"{ZAMBA} cut-depth fp32 step, kernel vs plain "
+                             f"scan: {errs}")
+    log(f"{ZAMBA} full width, 1 layer + shared block, fp32: one train step "
+        f"through the kernels against the plain scan under autograd, "
+        f"leaf-relative max |diff|: grads {worst['grad']}, updated params "
+        f"{worst['param']}; loss {float(gm['loss'])} vs {float(wm['loss'])}")
+    del state, got, want, gm, wm
+    torch.cuda.empty_cache()
+    return worst
+
+
+def training_phase(dev, card: str) -> dict:
+    t0 = time.perf_counter()
+    res = {"zamba2": zamba_training(dev, card),
+           "seamless": seamless_training(dev, card),
+           "zamba2_cut_depth_fp32": zamba_step_check(dev),
+           "xlstm": xlstm_training(dev, card)}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"training phase took {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     global OUT
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=OUT, help="directory for the per-launch "
                     "times and the profiler trace (default: smoke_out/)")
-    OUT = os.path.abspath(ap.parse_args().out)
+    args = ap.parse_args()
+    OUT = os.path.abspath(args.out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2094,7 +2739,6 @@ def main() -> int:
     for mod in _kernel_ops():
         mod.library()
     t_start = time.perf_counter()
-
     t0 = time.perf_counter()
     models = {name: prepare_model(name, dev)
               for name in ("googlenet", "resnet50")}
@@ -2121,6 +2765,15 @@ def main() -> int:
         log(f"{arch} serving on {card} ({time.perf_counter() - t0:.1f} s): "
             + json.dumps(recurrent[arch]))
     log(f"phases 2-7 took {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    seamless = seamless_phase(dev, card)
+    log(f"{SEAMLESS} serving on {card} ({time.perf_counter() - t0:.1f} s): "
+        + json.dumps(seamless))
+    scan_bw = scan_backward_phase(dev)
+    training = training_phase(dev, card)
+    log(f"training on {card}: " + json.dumps(
+        {k: v for k, v in training.items() if k != "zamba2"}))
+    log(f"phases 2-12 took {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, replaces, cuda_kernels in (
@@ -2190,12 +2843,34 @@ def main() -> int:
                          "ms": scan_t[arch]["ms"],
                          "plain_ms": scan_t[arch]["plain_ms"],
                          "bound_ms": scan_t[arch]["bound_ms"]}
-                  for arch in recurrent}})
+                  for arch in recurrent},
+        "backward": {
+            "function": "gradient of (q0, k0, v, log_a) through "
+                        "ScanFunction: scan_backward's three kernel scans + "
+                        "the d log_a reduction (bf16, training microbatch "
+                        "2x2048); bound_ms from the function's least work, "
+                        "impl_bytes/impl_flops the three scans' and the "
+                        "reduction's",
+            "per_train_step": {
+                arch: {"kernel_launches": training[key][
+                           "launches_per_step"]["ssm_scan"],
+                       "backward_calls": training[key][
+                           "launches_per_step"]["ssm_scan_backward"]}
+                for arch, key in ((ZAMBA, "zamba2"), (XLSTM, "xlstm"))},
+            "max_rel_err": scan_bw["errors"],
+            **{arch: scan_bw[arch] for arch in ("xlstm-1.3b",
+                                                "zamba2-1.2b")}}})
     checked["artifact"] = served["artifact"]
     checked["tune"] = tuned
     checked["serving_plane"] = serving
     checked["flash_max_abs_err"] = flash_errs
     checked["ssm_scan_err"] = scan_errs
+    checked["seamless"] = seamless
+    checked["training"] = {k: v for k, v in training.items()
+                           if k != "zamba2"}
+    checked["training"]["zamba2"] = {
+        k: v for k, v in training["zamba2"].items()
+        if k not in ("train_step_profile", "grad_norms_step1")}
     print(json.dumps({"kernels": kernels, "checked": checked,
                       "card": card}), flush=True)
     print(smi(), flush=True)

@@ -56,3 +56,11 @@ def lm_cache_from_reference(cache: dict, device=None) -> dict:
     "v"}``), as tensors on ``device`` (None means CUDA, as above)."""
     dev = resolve_device(device)
     return {k: _tensor(v, dev) for k, v in cache.items()}
+
+
+def train_state_from_reference(state: dict, device=None) -> dict:
+    """The reference's train state ``{"params", "opt": {"m", "v",
+    "step"}}`` (arrays, bf16 moments and the int32 ``step`` included) as
+    the port's nested dicts of tensors on ``device`` (None means CUDA, as
+    above)."""
+    return lm_params_from_reference(state, device)

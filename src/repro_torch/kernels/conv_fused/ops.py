@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import int8_ops
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 
 I8_MIN = -128
 
@@ -558,7 +558,8 @@ def fused_chain(x, weights, biases, sides, *, chain, oh, ow, oc,
     stage.  ``tile`` (th, tw, toc) overrides the card's tile choice;
     ``packed`` is ``pack_chain_weights`` of each weight, made once by the
     caller (the kernel packs them itself without it, the plain version
-    ignores it)."""
+    ignores it).  Not differentiable: raises under autograd."""
+    refuse_autograd("fused_chain", x, *weights, *biases, *sides)
     if x.device.type == "cpu":
         PLAIN_CALLS["fused_chain"] += 1
         return fused_chain_plain(x, weights, biases, sides, chain=chain,
@@ -676,7 +677,9 @@ def fused_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad,
     """Sibling convs over OC-stacked weights w (KH,KW,IC,ΣOC) int8 with bias
     b and per-channel shift/ReLU vectors (ΣOC,) int32.  ``packed`` is
     ``pack_horizontal`` of the same operands, made once by the caller; the
-    kernel packs them itself without it, the plain version ignores it."""
+    kernel packs them itself without it, the plain version ignores it.
+    Not differentiable: raises under autograd."""
+    refuse_autograd("fused_horizontal", x, w, b, shift_vec, relu_vec)
     if x.device.type == "cpu":
         PLAIN_CALLS["fused_horizontal"] += 1
         return fused_horizontal_plain(x, w, b, shift_vec, relu_vec,

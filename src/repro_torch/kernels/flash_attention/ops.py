@@ -26,7 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 
 NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -181,8 +181,11 @@ def tile_plan(b: int, sq: int, sk: int, h: int, kv: int, d: int, dtype,
 
 
 def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True):
-    """q (B,Sq,H,D); k/v (B,Sk,KV,D), H % KV == 0.  Returns (B,Sq,H,D)."""
+    """q (B,Sq,H,D); k/v (B,Sk,KV,D), H % KV == 0.  Returns (B,Sq,H,D).
+    Not differentiable: under autograd it raises on either device
+    (``refuse_autograd``)."""
     _check(q, k, v)
+    refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         PLAIN_CALLS["flash_attention"] += 1
         return attention_ref(q, k, v, q_offset=q_offset, causal=causal)

@@ -301,6 +301,7 @@ typedef __nv_bfloat16 bf16;
 struct MmaParams {
   int64_t B, S, H, K, V, NC;              // NC chunks of T2 steps
   int64_t qs[3], ks[3], vs[3], ls[3];     // (batch, seq, head) strides
+  int y32;                                // y float32 (else bf16)
 };
 
 __device__ __forceinline__ uint32_t s_addr(const void* p) {
@@ -501,7 +502,7 @@ template <int WM, int KW, bool VEC>
 __global__ void __launch_bounds__(STHREADS, 1)
 scan_state_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const uint32_t* __restrict__ P,
-                  const float* __restrict__ coef, bf16* __restrict__ y,
+                  const float* __restrict__ coef, void* __restrict__ y,
                   const MmaParams p) {
   using L = StateLayout<WM, KW>;
   constexpr int WK = L::WK, VT = L::VT, KS = L::KS, NS = L::NS;
@@ -696,10 +697,16 @@ scan_state_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s0 += red[(w * T2 + i) * LDR + c];
         s1 += red[(w * T2 + i) * LDR + c + 1];
       }
-      bf16* yr = y + ((b * p.S + t0 + i) * p.H + h) * p.V + c0 + c;
-      if (p.V % 2 == 0) {
+      const int64_t yo = ((b * p.S + t0 + i) * p.H + h) * p.V + c0 + c;
+      if (p.y32) {                 // the backward's dq and dk, unrounded
+        float* yr = static_cast<float*>(y) + yo;
+        yr[0] = s0;
+        if (c0 + c + 1 < p.V) yr[1] = s1;
+      } else if (p.V % 2 == 0) {
+        bf16* yr = static_cast<bf16*>(y) + yo;
         *reinterpret_cast<__nv_bfloat162*>(yr) = __floats2bfloat162_rn(s0, s1);
       } else {
+        bf16* yr = static_cast<bf16*>(y) + yo;
         yr[0] = __float2bfloat16(s0);
         if (c0 + c + 1 < p.V) yr[1] = __float2bfloat16(s1);
       }
@@ -710,7 +717,7 @@ scan_state_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int WM, int KW>
 static int launch_state(const MmaParams& p, bool vec, const bf16* q,
                         const bf16* k, const bf16* v, const uint32_t* P,
-                        const float* coef, bf16* y, cudaStream_t stream) {
+                        const float* coef, void* y, cudaStream_t stream) {
   constexpr int smem = StateLayout<WM, KW>::BYTES;
   constexpr int VT = 16 * WM;
   auto kern = vec ? scan_state_kernel<WM, KW, true>
@@ -808,12 +815,13 @@ extern "C" int repro_ssm_scan(int dtype, int vt, const void* q, const void* k,
 }
 
 // bf16 route.  vt: 32 or 128; vec: 16-byte copies of q, k and v (K, V
-// and every stride a multiple of 8 elements, pointers 16-byte aligned).
+// and every stride a multiple of 8 elements, pointers 16-byte aligned);
+// y32: y is float32 (the backward's dq and dk), else bf16.
 // dims as repro_ssm_scan's.  P: (B * H * NC, T2 * T2) uint32 scratch (each
 // P's bf16 hi and lo halves), coef: (B * H * NC, CREC) float scratch, NC =
 // ceil(S / T2).  Launches scan_intra_kernel, then scan_state_kernel;
 // returns a cudaError_t.
-extern "C" int repro_ssm_scan_bf16(int vt, int vec, const void* q,
+extern "C" int repro_ssm_scan_bf16(int vt, int vec, int y32, const void* q,
                                    const void* k, const void* v,
                                    const float* la, void* y, void* P,
                                    void* coef, const int64_t* dims,
@@ -821,6 +829,7 @@ extern "C" int repro_ssm_scan_bf16(int vt, int vec, const void* q,
   MmaParams p;
   p.B = dims[0]; p.S = dims[1]; p.H = dims[2]; p.K = dims[3]; p.V = dims[4];
   p.NC = (p.S + T2 - 1) / T2;
+  p.y32 = y32;
   for (int i = 0; i < 3; ++i) {
     p.qs[i] = dims[5 + i];
     p.ks[i] = dims[8 + i];
@@ -840,14 +849,13 @@ extern "C" int repro_ssm_scan_bf16(int vt, int vec, const void* q,
   else scan_intra_kernel<false><<<g1, 128, 0, st>>>(qq, kk, la, pp, cf, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bf16* yy = static_cast<bf16*>(y);
   switch (vt * 1000 + kw) {
-    case 32016: return launch_state<2, 16>(p, vec, qq, kk, vv, pp, cf, yy, st);
-    case 32032: return launch_state<2, 32>(p, vec, qq, kk, vv, pp, cf, yy, st);
-    case 32064: return launch_state<2, 64>(p, vec, qq, kk, vv, pp, cf, yy, st);
-    case 32128: return launch_state<2, 128>(p, vec, qq, kk, vv, pp, cf, yy, st);
-    case 32256: return launch_state<2, 256>(p, vec, qq, kk, vv, pp, cf, yy, st);
-    case 128064: return launch_state<8, 64>(p, vec, qq, kk, vv, pp, cf, yy, st);
+    case 32016: return launch_state<2, 16>(p, vec, qq, kk, vv, pp, cf, y, st);
+    case 32032: return launch_state<2, 32>(p, vec, qq, kk, vv, pp, cf, y, st);
+    case 32064: return launch_state<2, 64>(p, vec, qq, kk, vv, pp, cf, y, st);
+    case 32128: return launch_state<2, 128>(p, vec, qq, kk, vv, pp, cf, y, st);
+    case 32256: return launch_state<2, 256>(p, vec, qq, kk, vv, pp, cf, y, st);
+    case 128064: return launch_state<8, 64>(p, vec, qq, kk, vv, pp, cf, y, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -25,6 +25,18 @@ upcast to fp32), against which the card holds the bf16 and fp16 routes at
 q, k and v may be strided views (Zamba2's q and k are broadcast over the
 heads with stride 0): the kernels read the (batch, seq, head) strides, and
 the wrapper copies only a tensor whose last dimension is not contiguous.
+
+Gradients.  The kernels launch through ``ctypes``, so on the card the
+wrapper runs them inside ``ScanFunction`` (a ``torch.autograd.Function``)
+whose backward is ``scan_backward``: the scan's own recurrence three more
+times, operands swapped (and time reversed for dk and dv), plus one fp32
+reduction for d log_a, so the backward runs on the same kernels.  The
+TPU kernel had no backward (the reference differentiates its scan through
+plain ``jnp``); this one is the port's own.  ``LAUNCHES["ssm_scan"]``
+counts every launch, the backward's three included, and
+``LAUNCHES["ssm_scan_backward"]`` the backward calls on the kernels, each
+counted once its three launches have returned.  On the CPU autograd runs
+through the plain version itself.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import row_rel_err  # noqa: F401
@@ -62,7 +75,7 @@ OUT_REL_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 # yet stay inside ``OUT_REL_TOL``
 ROUND_SHARE_TOL = 2.0 ** -6
 
-LAUNCHES = {"ssm_scan": 0}
+LAUNCHES = {"ssm_scan": 0, "ssm_scan_backward": 0}
 PLAIN_CALLS = {"ssm_scan": 0}
 
 
@@ -78,7 +91,7 @@ def _bind(lib) -> None:
     lib.repro_ssm_scan.restype = ci
     lib.repro_ssm_scan_smem.argtypes = [ctypes.c_int64, ci]
     lib.repro_ssm_scan_smem.restype = ctypes.c_int64
-    lib.repro_ssm_scan_bf16.argtypes = [ci, ci] + [vp] * 9
+    lib.repro_ssm_scan_bf16.argtypes = [ci, ci, ci] + [vp] * 9
     lib.repro_ssm_scan_bf16.restype = ci
     lib.repro_ssm_scan_bf16_smem.argtypes = [ci, ctypes.c_int64]
     lib.repro_ssm_scan_bf16_smem.restype = ctypes.c_int64
@@ -195,10 +208,76 @@ def ssm_scan(q, k, v, log_a, *, chunk: int = 128):
         raise ValueError(f"ssm_scan runs on CUDA or the CPU, not {q.device}")
     if q.dtype not in ROUTES:
         raise ValueError(f"ssm_scan takes {list(ROUTES)}, not {q.dtype}")
+    return ScanFunction.apply(q, k, v, log_a, kernel_scan)
+
+
+def kernel_scan(q, k, v, log_a, out_dtype=None):
+    """One launch of ``q.dtype``'s route at the slab width ``slab_width``
+    picks for these shapes; y in ``out_dtype`` (default v's).  float32 y
+    from bf16 inputs comes straight from the bf16 route's accumulators;
+    from fp16 inputs the fp32 route runs on them upcast."""
+    if out_dtype == torch.float32 and q.dtype == torch.float16:
+        q, k, v = q.float(), k.float(), v.float()
     b, _, h, dk = q.shape
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     return launch(q, k, v, log_a, slab_width(b, h, dk, v.shape[-1], n_sm,
-                                             q.dtype))
+                                             q.dtype), out_dtype)
+
+
+# ----------------------------------------------------------------- backward
+def _flip(t):
+    return torch.flip(t, (1,))
+
+
+def scan_backward(q, k, v, log_a, dy, *, scan):
+    """Gradients (dq, dk, dv, d log_a) of ``y = scan(q, k, v, log_a)`` for
+    the upstream gradient ``dy`` (B,S,H,V), by ``scan`` itself (the CUDA
+    route on the card, the plain version in the CPU tests).
+
+    With b_t = sum_{r<=t} log a_r the forward is y_t = sum_{s<=t}
+    e^{b_t - b_s} (q_t . k_s) v_s, so dq is the forward scan with (q, k, v)
+    = (dy, v, k), and dk, dv are scans over reversed time with (q, k, v) =
+    (v, dy, q) and (k, q, dy).  The reversed scan decays by a_{t+1}, not
+    a_t: its log decay is flip(log_a) shifted one step, a zero first.
+    d log_a_t = sum_{r>=t} (q_r . dq_r - k_r . dk_r) in fp32: the pairs
+    (s < t <= r) whose decay spans step t; the diagonal terms cancel
+    exactly, but only if dq and dk are not rounded first: their scans
+    return float32 (``out_dtype``), and they are cast to q's and k's dtype
+    after the reduction.  ``scan(q, k, v, log_a, out_dtype=None)`` is
+    ``kernel_scan`` (the CPU tests pass the plain scan with that
+    signature); d log_a is fp32, dv in v's dtype."""
+    dy = dy.to(v.dtype)
+    f32 = torch.float32
+    dq = scan(dy, v, k, log_a, out_dtype=f32)
+    la_rev = torch.cat([torch.zeros_like(log_a[:, :1]),
+                        _flip(log_a)[:, :-1]], dim=1)
+    dk = _flip(scan(_flip(v), _flip(dy), _flip(q), la_rev, out_dtype=f32))
+    dv = _flip(scan(_flip(k), _flip(q), _flip(dy), la_rev))
+    terms = (torch.einsum("bshk,bshk->bsh", q.float(), dq)
+             - torch.einsum("bshk,bshk->bsh", k.float(), dk))
+    dla = _flip(torch.cumsum(_flip(terms), dim=1))
+    return dq.to(q.dtype), dk.to(k.dtype), dv, dla
+
+
+class ScanFunction(torch.autograd.Function):
+    """``scan(q, k, v, log_a)`` under autograd, its backward
+    ``scan_backward`` by the same ``scan``.  The wrapper passes
+    ``kernel_scan``; a test may pass the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_a, scan):
+        ctx.scan = scan
+        ctx.save_for_backward(q, k, v, log_a)
+        return scan(q, k, v, log_a)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        q, k, v, log_a = ctx.saved_tensors
+        dq, dk, dv, dla = scan_backward(q, k, v, log_a, dy, scan=ctx.scan)
+        if ctx.scan is kernel_scan:          # its three launches returned
+            LAUNCHES["ssm_scan_backward"] += 1
+        return dq, dk, dv, dla, None
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -214,12 +293,18 @@ def _vec(*ts) -> bool:
                and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
 
 
-def launch(q, k, v, log_a, vt: int):
+def launch(q, k, v, log_a, vt: int, out_dtype=None):
     """Launch ``q.dtype``'s route with column slabs of ``vt`` columns of S
     (one of ``slabs(q.dtype, K)``); ``ssm_scan`` picks the width with
-    ``slab_width``."""
+    ``slab_width``.  y has v's dtype, or float32 from the bf16 route where
+    ``out_dtype`` asks for it."""
     if q.dtype not in ROUTES:
         raise ValueError(f"ssm_scan takes {list(ROUTES)}, not {q.dtype}")
+    out_dtype = out_dtype or v.dtype
+    if out_dtype != v.dtype and not (q.dtype == torch.bfloat16
+                                     and out_dtype == torch.float32):
+        raise ValueError(f"ssm_scan: the {q.dtype} route writes y in "
+                         f"{v.dtype}, not {out_dtype}")
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     smem = slab_smem(q.dtype, dk, vt)
@@ -229,7 +314,7 @@ def launch(q, k, v, log_a, vt: int):
                          f"memory, at most {MAX_SMEM})")
     if b * h > 65535:
         raise ValueError(f"ssm_scan: {b * h} (batch, head) pairs > 65535")
-    out = torch.empty((b, s, h, dv), dtype=v.dtype, device=v.device)
+    out = torch.empty((b, s, h, dv), dtype=out_dtype, device=v.device)
     if out.numel() == 0 or dk == 0:
         return out.zero_()
     q, k, v = _rows(q), _rows(k), _rows(v)
@@ -245,7 +330,8 @@ def launch(q, k, v, log_a, vt: int):
         coef = torch.empty((b * h * n_chunks, COEF), dtype=torch.float32,
                            device=q.device)
         rc = lib.repro_ssm_scan_bf16(
-            ctypes.c_int(vt), ctypes.c_int(int(_vec(q, k, v))), *ptrs,
+            ctypes.c_int(vt), ctypes.c_int(int(_vec(q, k, v))),
+            ctypes.c_int(int(out_dtype == torch.float32)), *ptrs,
             ctypes.c_void_p(pbuf.data_ptr()),
             ctypes.c_void_p(coef.data_ptr()),
             dims.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))

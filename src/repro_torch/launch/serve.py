@@ -5,6 +5,7 @@
     python -m repro_torch.launch.serve --arch granite-8b
     python -m repro_torch.launch.serve --arch xlstm-1.3b
     python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -20,15 +21,20 @@ from repro_torch.configs import get as get_cfg
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import api
+from repro_torch.nn import encdec
 
 
 def make_prefill_step(cfg: ArchConfig):
-    """Prefill of the dense/MoE/VLM (``nn.model``), ``ssm`` (``nn.xlstm``)
-    and ``hybrid`` (``nn.zamba``) families; the last two take no patch
-    embeddings, which a text batch does not carry."""
-    mod = api._mod(cfg)             # raises for a family not ported yet
+    """Prefill of every family: Seamless (``audio``) encodes
+    ``batch["frames"]`` and decodes ``batch["tokens"]`` against it; the
+    others run their ``forward`` (``ssm`` and ``hybrid`` take no patch
+    embeddings, which a text batch does not carry)."""
+    mod = api._mod(cfg)
 
     def prefill(params, batch):
+        if cfg.family == "audio":
+            enc_out = encdec.encode(cfg, params, batch["frames"])
+            return encdec.decode_train(cfg, params, enc_out, batch["tokens"])
         return mod.forward(cfg, params, batch["tokens"],
                            batch.get("patch_embeds"))[0]
 

@@ -3,12 +3,45 @@
 
 The reference's sharding helpers (``constrain``, ``_mesh_dims``) are left
 out: the port runs on one card, and the distributed item of the ROADMAP
-brings them back on ``torch.distributed``.
+brings them back on ``torch.distributed``.  ``remat`` is the port's
+``jax.remat``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
+
+# the products the "dots" remat policy keeps (the reference's
+# ``dots_saveable``): what ``@``, ``einsum`` and ``F.linear`` dispatch to
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(body, *, dots: bool = False):
+    """``body`` under activation checkpointing (non-reentrant): in backward
+    its forward runs again instead of keeping its activations; with
+    ``dots`` the matmul outputs are kept and only the rest recomputed.
+    Where grad mode is off (serving) ``body`` runs as it is.  The values
+    are the same either way."""
+    context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _save_dots) if dots
+                  else ckpt.noop_context_fn)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return ckpt.checkpoint(body, *args, use_reentrant=False,
+                               context_fn=context_fn)
+
+    return run
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):

@@ -3,7 +3,8 @@
 
 Layer parameters are stacked on a leading L axis, as in the reference's
 pytree; the reference's ``lax.scan`` over layers is a Python loop over that
-axis.  Training pieces (``_remat``, ``loss_fn``) are not ported yet.
+axis, each layer under ``_remat`` (the reference's layer remat policy).
+``lm_loss`` is the families' shared cross-entropy.
 """
 from __future__ import annotations
 
@@ -18,7 +19,25 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator,
+def _remat(cfg: ArchConfig, body):
+    """Layer remat policy: "full" recomputes the whole block in backward;
+    "dots" saves matmul outputs and recomputes only the cheap elementwise
+    chains (the reference's ``dots_saveable``)."""
+    if not cfg.remat:
+        return body
+    return nnl.remat(body, dots=cfg.remat_policy == "dots")
+
+
+def lm_loss(logits, labels):
+    """Mean next-token cross-entropy: fp32 logsumexp minus the label's
+    logit, as every reference family computes it."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator | None,
                 device: torch.device):
     """Normal(0, 0.02) weights drawn on ``device`` from ``generator`` (which
     must live on that device), with the reference's keys and shapes; norm
@@ -123,12 +142,26 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     pos = positions_for(cfg, b, s, device=x.device)
+
+    def body(x, lp):
+        return _layer(cfg, x, lp, pos, cfg.attn_impl)
+
+    body_fn = _remat(cfg, body)
     aux = 0.0
     for i in range(cfg.n_layers):
-        x, a = _layer(cfg, x, _layer_params(params, i), pos, cfg.attn_impl)
+        x, a = body_fn(x, _layer_params(params, i))
         aux = aux + a
     x = nnl.rms_norm(x, params["ln_f"])
     return _unembed(params, x), aux
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          batch.get("patch_embeds"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:          # VLM: loss on text only
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    return lm_loss(logits, labels) + 0.01 * aux
 
 
 # --------------------------------------------------------------------- decode

@@ -51,7 +51,11 @@ def chunked_linear_scan(q, k, v, log_a, *, chunk: int = 128, state0=None):
         # within-chunk decay-masked "attention": A[i,j] = exp(cum_i - cum_j)
         # for j <= i (contribution of step j's kv to step i's output)
         diff = cum[..., :, None] - cum[..., None, :]          # (B,H,L,L)
-        A = torch.where(tri, torch.exp(diff), 0.0).to(qb.dtype)
+        # exp of the masked diff, not the reference's where(tri, exp(diff),
+        # 0): the same values, but the upper triangle's exp (e^{+100} and
+        # more over a long chunk) never overflows into 0 * inf = nan under
+        # autograd
+        A = torch.exp(diff.masked_fill(~tri, float("-inf"))).to(qb.dtype)
         scores = torch.einsum("bhik,bhjk->bhij", qb, kb) * A
         intra = torch.einsum("bhij,bhjv->bhiv", scores, vb)
         # inter-chunk: state carried in, decayed per step

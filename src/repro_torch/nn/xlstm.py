@@ -7,8 +7,9 @@ q/k from the value path, per-head matrix memory via the shared chunked
 linear recurrence (``kernels/ssm_scan``: the CUDA kernel on the card, the
 plain ``chunked_linear_scan`` on the CPU); sigmoid input/forget gating
 (stabilized exponential gating omitted, as in the reference); gated
-down-projection back to d.  Training pieces (``loss_fn``, remat) are not
-ported yet.
+down-projection back to d.  Under ``cfg.remat`` each mLSTM block runs under
+``layers.remat`` (the reference's ``jax.remat``); in backward the scan's
+gradient comes from ``ops.ScanFunction`` on the card.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan import ops
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import recurrent as rec
+from repro_torch.nn.model import lm_loss
 
 
 def _dims(cfg: ArchConfig):
@@ -34,7 +36,7 @@ def _counts(cfg: ArchConfig):
     return n_s, cfg.n_layers - n_s
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator,
+def init_params(cfg: ArchConfig, generator: torch.Generator | None,
                 device: torch.device):
     """Normal(0, 0.02) weights drawn on ``device`` from ``generator``, with
     the reference's keys and shapes; norm gains are fp32 ones."""
@@ -119,16 +121,26 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
     n_groups = cfg.n_layers // k if k else 0
     per_group = k - 1 if k else 0
     mp = params["mlstm"]
+
+    def mbody(x, lp):
+        return _mlstm_block(cfg, x, lp, chunk)
+
+    body = nnl.remat(mbody) if cfg.remat else mbody
     off = 0
     for gi in range(n_groups):
         for i in range(off, off + per_group):
-            x = _mlstm_block(cfg, x, _layer(mp, i), chunk)
+            x = body(x, _layer(mp, i))
         off += per_group
         x = _slstm_block(cfg, x, _layer(params["slstm"], gi))
     for i in range(off, mp["w_up"].shape[0]):
-        x = _mlstm_block(cfg, x, _layer(mp, i), chunk)
+        x = body(x, _layer(mp, i))
     x = nnl.rms_norm(x, params["ln_f"])
     return _unembed(params, x), 0.0
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    logits, _ = forward(cfg, params, batch["tokens"])
+    return lm_loss(logits, batch["labels"])
 
 
 # --------------------------------------------------------------------- decode

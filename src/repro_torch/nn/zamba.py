@@ -7,7 +7,9 @@ k ~ B-projection (ssm_state dim), v ~ x heads (head_dim), q ~ C-projection,
 per-head scalar decay from the dt/A gate.  The shared block has distinct
 per-application norms and rank-r LoRA adapters on its projections (Zamba2's
 design); its input is [hidden, original embedding] concatenated, as in the
-paper.  Training pieces (``loss_fn``, remat) are not ported yet.
+paper.  Under ``cfg.remat`` each Mamba2 block runs under ``layers.remat``
+(the reference's ``jax.remat``); in backward the scan's gradient comes from
+``ops.ScanFunction`` on the card.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.kernels.ssm_scan import ops
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers as nnl
 from repro_torch.nn import recurrent as rec
+from repro_torch.nn.model import lm_loss
 
 
 def _dims(cfg: ArchConfig):
@@ -31,7 +34,7 @@ def _napp(cfg: ArchConfig) -> int:
     return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator,
+def init_params(cfg: ArchConfig, generator: torch.Generator | None,
                 device: torch.device):
     """Normal(0, 0.02) weights drawn on ``device`` from ``generator``, with
     the reference's keys and shapes; norm gains are fp32 ones and the decay
@@ -154,17 +157,27 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
     chunk = rec.chunk_for(x.shape[1])
     k = cfg.shared_attn_every
     mp = params["mamba"]
+
+    def mbody(x, lp):
+        return _mamba_block(cfg, x, lp, chunk)
+
+    body = nnl.remat(mbody) if cfg.remat else mbody
     off = 0
     for gi in range(_napp(cfg)):
         for i in range(off, off + k):
-            x = _mamba_block(cfg, x, _layer(mp, i), chunk)
+            x = body(x, _layer(mp, i))
         off += k
         x = _shared_block(cfg, x, x0, params["shared"],
                           _layer(params["lora"], gi))
     for i in range(off, cfg.n_layers):
-        x = _mamba_block(cfg, x, _layer(mp, i), chunk)
+        x = body(x, _layer(mp, i))
     x = nnl.rms_norm(x, params["ln_f"])
     return x @ params["embed"].T.to(x.dtype), 0.0
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    logits, _ = forward(cfg, params, batch["tokens"])
+    return lm_loss(logits, batch["labels"])
 
 
 # --------------------------------------------------------------------- decode

@@ -447,3 +447,59 @@ def test_recurrent_prefill_on_card_matches_cpu(dev, arch):
         outs.append(lg)
     torch.testing.assert_close(torch.stack(outs, 1).cpu(), want[:, :32],
                                rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,bcast", [
+    (2, 256, 4, 64, 64, False), (2, 128, 8, 16, 32, True),
+    (1, 200, 2, 24, 40, False)])
+def test_ssm_scan_gradients_on_card_match_plain_autograd(dev, b, s, h, dk,
+                                                         dv, bcast):
+    """fp32: the wrapper's gradients (``ScanFunction``: three kernel scans
+    and the d log_a reduction) against autograd through the plain scan, at
+    1e-3 of each gradient's largest value (the backward chains a scan held
+    at 2e-4 with a reduction whose terms cancel), TF32 off; one backward
+    call counted, no plain call."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+    from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hq = 1 if bcast else h
+    q0, k0 = (torch.randn((b, s, hq, dk), generator=gen, device=dev)
+              .div_(dk ** 0.5).requires_grad_(True) for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=gen, device=dev,
+                    requires_grad=True)
+    la = torch.nn.functional.logsigmoid(torch.randn(
+        (b, s, h), generator=gen, device=dev)).requires_grad_(True)
+    dy = torch.randn((b, s, h, dv), generator=gen, device=dev)
+    q, k = q0.expand(b, s, h, dk), k0.expand(b, s, h, dk)
+    want = torch.autograd.grad(chunked_linear_scan(
+        q, k, v, la, chunk=chunk_for(s))[0], (q0, k0, v, la), dy)
+    scan.reset_counts()
+    got = torch.autograd.grad(scan.ssm_scan(q, k, v, la, chunk=chunk_for(s)),
+                              (q0, k0, v, la), dy)
+    torch.cuda.synchronize()
+    assert scan.LAUNCHES == {"ssm_scan": 4, "ssm_scan_backward": 1}
+    assert scan.PLAIN_CALLS["ssm_scan"] == 0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= 1e-3, err
+
+
+def test_kernels_without_backward_refuse_autograd_on_card(dev):
+    from repro_torch.kernels.flash_attention import ops as flash
+
+    q = torch.randn((1, 64, 2, 64), device=dev, requires_grad=True)
+    k = torch.randn((1, 64, 2, 64), device=dev)
+    with pytest.raises(RuntimeError, match="flash_attention has no backward"):
+        flash.flash_attention(q, k, k)
+    x = torch.zeros((1, 4, 4, 8), device=dev, requires_grad=True)
+    vec = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="fused_horizontal has no "
+                       "backward"):
+        ops.fused_horizontal(x, x, vec, vec, vec, stride=(1, 1), pad=(0, 0))
+    with pytest.raises(RuntimeError, match="fused_chain has no backward"):
+        ops.fused_chain(x, [x], [vec], [], chain=(), oh=4, ow=4, oc=8)
+    with torch.no_grad():
+        assert flash.flash_attention(q, k, k).shape == q.shape

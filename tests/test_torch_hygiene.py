@@ -232,6 +232,61 @@ print("BAD", bad, out)
                                   "((2, 16, 512), (2, 4), 8)]"), res.stdout
 
 
+def test_cpu_training_path_never_loads_jax_or_reference(tmp_path):
+    """Seamless served, then Zamba2 trained at smoke size (the scan's
+    gradient through its plain version), checkpointed and resumed, with
+    no jax in the process."""
+    code = """
+import sys
+from repro_torch.launch import serve, train
+from repro_torch.optim import compress
+served = serve.main(["--arch", "seamless-m4t-large-v2", "--smoke",
+                     "--device", "cpu", "--batch", "2", "--prompt-len", "4",
+                     "--gen-len", "2"])
+args = ["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu", "--batch", "2",
+        "--seq", "32", "--checkpoint-dir", sys.argv[1]]
+first = train.main(args + ["--steps", "2"])
+again = train.main(args + ["--steps", "3"])
+deq, err = compress.quantize_ef(first["state"]["params"],
+                                compress.init_error(first["state"]["params"]))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad, served["tokens"].shape, len(first["losses"]),
+      again["start"], int(again["state"]["opt"]["step"]))
+"""
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, env=_env(),
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "BAD [] (2, 2) 2 2 3", \
+        res.stdout
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import serve, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get("zamba2-1.2b").smoke()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "zamba2-1.2b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.init_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SyntheticLM(vocab=8, batch=1, seq=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "seamless-m4t-large-v2", "--smoke"])
+    store = CheckpointStore(str(tmp_path))
+    store.save({"w": torch.zeros(2)}, step=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        store.restore(1, {"w": torch.empty(2, device="meta")})
+
+
 def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20

@@ -269,12 +269,3 @@ def test_serve_main_smoke_on_cpu(capsys):
                        "--batch", "2", "--prompt-len", "4", "--gen-len", "3"])
     assert res["tokens"].shape == (2, 3)
     assert "generated 3 steps x 2 seqs" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2"])
-def test_families_not_ported_raise(arch):
-    cfg = tconfigs.get(arch).smoke()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tapi.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.make_prefill_step(cfg)
