@@ -23,6 +23,8 @@ Phases (any failure raises and the script exits non-zero):
    at the same M, K, N as a yardstick the port never calls).
    At int32-extreme biases (within 2^20 of +-2^31) and shifts 1, 31, 32,
    33 and 40, hand-built chains (conv then elt) and horizontal launches.
+   ``fused_conv_block`` (a conv, conv + max-pool, conv + eltwise through
+   the chain kernel) against the same call on the CPU (its plain version).
 3. The slice: GoogLeNet at 224x224x3, 1000 classes, random weights from a
    seed, calibrated with the port's float executor on the card, planned
    under ZU2, compiled through the plan cache (``asm.PLAN_CACHE``: a miss,
@@ -42,8 +44,9 @@ Phases (any failure raises and the script exits non-zero):
    version at 2e-5, and bf16 against the kernel's arithmetic unfused in
    fp32 (``attention_fp32``) at two bf16 unit roundoffs of each output
    row's largest value, at Granite-8B's prefill shape (B=4, S=2048, 32
-   heads on 8 kv heads, d=128), SmolLM-360M's (15 on 5, d=64), a ``q_offset`` tail and a
-   non-causal call; timed with CUDA events beside the plain version, the
+   heads on 8 kv heads, d=128), SmolLM-360M's (15 on 5, d=64), a
+   ``q_offset`` tail, a non-causal call and one rank's share of the TP = 2
+   prefill of phase 13 (16 heads on 4); timed with CUDA events beside the plain version, the
    bound and ``scaled_dot_product_attention`` (a yardstick the port never
    calls), with the kernel's own tensor work (6 d FLOP per kept pair: P V
    runs on both halves of P) and its share of the bf16 peak.
@@ -167,6 +170,35 @@ Phases (any failure raises and the script exits non-zero):
     finite and nonzero, each mLSTM layer's ``w_up``, ``w_qkg`` and
     ``w_down`` gradient nonzero.
 
+13. The multi-device slice (``launch/mesh``, ``shard``, ``train`` with a
+    mesh, ``checkpoint`` placements, ``distributed/elastic``), ranks spawned
+    by ``launch.mesh.run_ranks``, rank r on ``cuda:{r % device_count}``,
+    gloo where ranks share a card (NCCL refuses two ranks on one device),
+    60 s per collective: (a) Granite-8B at full width and depth, seed-0
+    bf16 weights placed by ``shard.param_specs`` on a (1, 2) mesh: the
+    4x2048 flash prefill (36 launches a rank on 16 q / 4 kv heads, no plain
+    call, only all-reduces issued), its logits no farther from phase 5's
+    fp32 prefill than 1.25 times phase 5's unsharded flash prefill, argmax
+    agreement with it, then the serve loop on a ``cache_specs``-sharded
+    cache; at fp32 and 4 layers, against the unsharded model with plain
+    attention: prefill within 1e-4, teacher-forced decode within 1e-4 and
+    its tokens kept at every generated position whose top-2 margin is more
+    than twice the distance, free-running greedy tokens equal up to their
+    first parting, which must fall on such a near tie (its step, row,
+    margin and distance are logged); (b) 4 layers at full width on (2, 2), a 4x2048
+    batch, ``grad_accum=2``, ZeRO-1 moments: the unsharded step (rank 0,
+    first, then freed), then ``grad_sync`` "auto", "late" and "late" with
+    ``compress=True``, each within 5e-3 (loss) and rtol 5e-3 / atol 5e-4
+    (params) of it; "late" at half of "auto"'s gradient all-reduce bytes
+    over the data group; compressed gradients within 5% of the exact mean;
+    (c) the late step on a (1, 1) NCCL mesh bit-equal to the unsharded
+    step, ``compressed_psum`` bit-equal to ``quantize_ef``; (d) the (2, 2)
+    state saved, ranks 2-3 lost, ``plan_mesh`` -> (1, 2), ``remesh`` over
+    ranks 0-1, ``restore_latest(placements=)`` bit-equal leaf by leaf, one
+    more step finite; the compressed step's state, whose int8 error
+    feedback rides in ``opt["err"]``, restored the same way; (e) host-clock times, per-rank peak memory and
+    collective bytes by op, all with the ranks sharing one card.
+
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -178,6 +210,7 @@ import contextlib
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -205,6 +238,8 @@ FLASH_CASES = {
     "smollm prefill": (4, 2048, 2048, 15, 5, 64, 0, True),
     "granite q_offset tail": (4, 128, 2048, 32, 8, 128, 1920, True),
     "granite non-causal": (1, 512, 512, 32, 8, 128, 0, False),
+    # one rank's heads in the TP = 2 prefill of phase 13
+    "granite TP=2 rank prefill": (4, 2048, 2048, 16, 4, 128, 0, True),
 }
 FP32_TOL = 2e-5            # fp32 kernel vs attention_ref, max |diff|
 # hand-made horizontal launches (h, w, ic, oc, kh, kw, stride, pad) at
@@ -215,6 +250,15 @@ HORIZONTAL_RAGGED = [
     (5, 7, 48, 37, 1, 1, 1, 0), (7, 7, 832, 40, 1, 1, 1, 0),
     (9, 11, 3, 20, 3, 3, 2, 1), (9, 11, 32, 24, 3, 3, 2, 1),
     (13, 13, 24, 70, 3, 3, 2, 1)]
+# fused_conv_block cases (h, w, ic, oc, k, stride, pad, relu, shift, pool,
+# eltwise ReLU or None): a conv, conv + max-pool, conv + eltwise
+CONV_BLOCKS = [
+    (12, 12, 8, 16, 3, 2, 1, True, 7, None, None),
+    (9, 9, 3, 5, 3, 1, 0, True, 7, None, None),
+    (14, 14, 8, 16, 3, 1, 1, True, 7, (3, 1), None),
+    (10, 10, 4, 8, 3, 1, 1, True, 7, (2, 2), None),
+    (8, 8, 4, 8, 3, 1, 1, False, 6, None, True),
+]
 # round_shift where the reference's int32 arithmetic wraps: biases within
 # 2^20 of -2^31 and 2^31 - 1, shifts from 1 past 32
 EXTREME_SHIFTS = (1, 31, 32, 33, 40)
@@ -557,8 +601,34 @@ def kernel_phase(models, dev) -> dict:
             n_ragged += 1
     log(f"fused_horizontal == plain on {n_ragged} hand-made ragged, split-K "
         f"and 3x3 stride-2 launches")
+    n_block = 0
+    for h, w, ic, oc, k, st, pd, relu, shift, pool, elt in CONV_BLOCKS:
+        x = rand_int8((2, h, w, ic), gen, dev)
+        wt = rand_int8((k, k, ic, oc), gen, dev)
+        b = torch.randint(-2000, 2000, (oc,), generator=gen,
+                          dtype=torch.int32).to(dev)
+        oh = (h + 2 * pd - k) // st + 1
+        eltwise = None if elt is None else (
+            rand_int8((2, oh, (w + 2 * pd - k) // st + 1, oc), gen, dev), 1,
+            2, elt)
+        kw = dict(stride=(st, st), pad=(pd, pd), shift=shift, relu=relu,
+                  pool=pool, eltwise=eltwise)
+        before = ops.LAUNCHES["fused_chain"]
+        got = ops.fused_conv_block(x, wt, b, **kw)
+        if ops.LAUNCHES["fused_chain"] != before + 1:
+            raise AssertionError("fused_conv_block did not launch the chain "
+                                 "kernel")
+        plain_kw = dict(kw, eltwise=eltwise and (eltwise[0].cpu(),
+                                                 *eltwise[1:]))
+        want = ops.fused_conv_block(x.cpu(), wt.cpu(), b.cpu(), **plain_kw)
+        check_equal(got, want.to(dev),
+                    f"fused_conv_block {(h, w, ic, oc, k, st, pd, pool, elt)}")
+        n_block += 1
+    log(f"fused_conv_block (the chain kernel) == plain on {n_block} conv, "
+        f"conv+max-pool and conv+eltwise blocks")
     return {"chain_launches": n_chain, "tiles": n_tiles, "hand": n_hand,
-            "horizontal_launches": n_horiz, "horizontal_ragged": n_ragged}
+            "horizontal_launches": n_horiz, "horizontal_ragged": n_ragged,
+            "conv_blocks": n_block}
 
 
 def timing_phase(m, dev) -> dict:
@@ -1666,6 +1736,9 @@ def lm_slice_phase(dev, card: str) -> dict:
     ref = serve.make_prefill_step(ref_cfg)(
         {k: ({kk: t.float() for kk, t in v.items()} if isinstance(v, dict)
              else v.float()) for k, v in params.items()}, {"tokens": tokens})
+    # phase 13a holds the TP=2 prefill of the same weights against these
+    torch.save({"fp32": ref.cpu(), "flash_bf16": logits.cpu()},
+               os.path.join(OUT, GRANITE_REF))
     diff = float((logits.float() - want.float()).abs().max())
     err_flash = float((logits.float() - ref).abs().max())
     err_xla = float((want.float() - ref).abs().max())
@@ -2703,6 +2776,480 @@ def training_phase(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 13
+# The multi-device slice.  The driver's machine has one card, so the ranks
+# share cuda:0 over gloo (NCCL refuses two ranks on one device): these runs
+# prove the sharded code, the kernel at its per-rank shapes and the
+# collectives' plumbing, not multi-card speed.  Every collective runs
+# through the mesh's process groups on CUDA tensors.
+MESH_SERVE = ((1, 2), ("data", "model"))      # (a): TP = 2
+MESH_TRAIN = ((2, 2), ("data", "model"))      # (b), (d)
+MESH_TRAIN_LAYERS = 4                         # (b): depth cut, full width
+MESH_TRAIN_BATCH = (4, 2048, 2)               # rows, sequence, grad_accum
+MESH_FP32_LAYERS = 4                          # (a): fp32 check at cut depth
+MESH_PG_TIMEOUT_S = 60                        # a hung collective fails
+# (b): the sharded step against the unsharded one, the reference's own
+# tolerances (tests/test_multidevice.py:55, :87, :116)
+MESH_LOSS_TOL = 5e-3
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-3, 5e-4
+MESH_COMPRESS_REL_TOL = 0.05
+SHARED = "ranks share one card"
+MESH_DEVICE = "cuda"
+GRANITE_REF = "granite_prefill_logits.pt"     # phase 5's, for 13a
+
+
+def _granite(**kw):
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get("granite-8b"), **kw)
+
+
+def _peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def _spy_flash():
+    """Record the q and k shapes of every flash call of this process."""
+    from repro_torch.kernels.flash_attention import ops as flash
+
+    seen = []
+    call = flash.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return call(q, k, v, **kw)
+
+    flash.flash_attention = spy
+    return seen
+
+
+def _rank_dev():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def tp_serve_rank(rank, world, ref_path) -> dict:
+    """(a) Granite-8B at full width and depth, TP = 2 on a (1, 2) mesh:
+    the 4x2048 flash prefill, the serve loop, and the fp32 cut-depth
+    check against the unsharded model on the same rank."""
+    from repro_torch.launch import serve, shard
+    from repro_torch.launch.hlo_analysis import (CommRecord,
+                                                 collective_stats_from_comm)
+    from repro_torch.launch.mesh import make_mesh, mesh_context
+    from repro_torch.launch.train import place_state
+    from repro_torch.models import api
+
+    dev = _rank_dev()
+    mesh = make_mesh(*MESH_SERVE, device_type=MESH_DEVICE)
+    backend = torch.distributed.get_backend()
+    cfg = _granite(attn_impl="flash")
+    B, S = GRANITE_PREFILL[0], GRANITE_PREFILL[1]
+    rng = np.random.default_rng(SEED)            # phase 5's draws
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    prompt = rng.integers(0, cfg.vocab, (B, 128))
+    full = api.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           dev)
+    params = place_state(full, shard.param_specs(full, mesh), mesh)
+    del full
+    torch.cuda.empty_cache()
+    prefill = serve.make_prefill_step(cfg)
+    res = {"backend": backend, "mesh": list(mesh.shape)}
+    with torch.no_grad(), mesh_context(mesh):
+        prefill(params, {"tokens": tokens[:, :128]})            # warm-up
+        seen = _spy_flash()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()                    # ---- main path starts here
+        with CommRecord() as comm:
+            logits, prefill_s = timed(lambda: prefill(params,
+                                                      {"tokens": tokens}))
+        launches, plain = all_counts()        # ---- main path ends here
+        res["prefill_peak_gib"] = _peak_gib(dev)
+        res.update(launches=launches, plain=plain,
+                   flash_shapes=sorted(set(seen)), prefill_ms=prefill_s * 1e3,
+                   prefill_collectives=collective_stats_from_comm(comm),
+                   prefill_ops=sorted({e["op"] for e in comm.entries}))
+        got = logits.full_tensor()
+        del logits
+        if rank == 0:
+            ref = torch.load(ref_path)
+            fp32 = ref["fp32"].to(dev)
+            unsharded = ref["flash_bf16"].to(dev)
+            res["err_vs_fp32"] = {
+                "sharded": float((got.float() - fp32).abs().max()),
+                "unsharded": float((unsharded.float() - fp32).abs().max())}
+            res["sharded_vs_unsharded"] = float(
+                (got.float() - unsharded.float()).abs().max()
+                / unsharded.float().abs().max())
+            res["argmax_agreement"] = float(
+                (got.argmax(-1) == unsharded.argmax(-1)).float().mean())
+            del fp32, unsharded, ref
+        del got
+        torch.cuda.empty_cache()
+        serve.serve_loop(cfg, params, prompt[:, :8], 2, dev, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loop = serve.serve_loop(cfg, params, prompt, 32, dev, mesh=mesh)
+        res.update(tokens=loop["tokens"].tolist(),
+                   prefill_by_decode_tokens_per_s=B * 127 / loop["prefill_s"],
+                   decode_tokens_per_s=B * 32 / loop["decode_s"],
+                   decode_peak_gib=_peak_gib(dev))
+    del params
+    torch.cuda.empty_cache()
+
+    # fp32 at full width and MESH_FP32_LAYERS layers: the sharded model
+    # (flash on each rank's heads) against the unsharded one with plain
+    # attention.  Prefill logits within FP32_PREFILL_TOL; the unsharded
+    # greedy tokens fed to both step by step (teacher-forced decode):
+    # logits within FP32_PREFILL_TOL, and at each generated position the
+    # same token wherever the unsharded top-2 margin exceeds twice the two
+    # models' distance (a closer tie may flip on a last-bit difference;
+    # those are counted).  The free-running greedy tokens are equal up to
+    # their first difference, which must fall on such a tie.
+    import dataclasses
+
+    cfg32 = _granite(attn_impl="flash", n_layers=MESH_FP32_LAYERS,
+                     dtype="float32")
+    plain32 = dataclasses.replace(cfg32, attn_impl="xla")
+    full = api.init_params(cfg32, torch.Generator(device=dev).manual_seed(
+        SEED + 1), dev)
+    toks = tokens[:, :512]
+    plen, gen = 16, 8
+    with torch.no_grad():
+        want = serve.make_prefill_step(plain32)(full, {"tokens": toks})
+        greedy = serve.serve_loop(plain32, full, prompt[:, :plen], gen, dev)
+        params = place_state(full, shard.param_specs(full, mesh), mesh)
+        with mesh_context(mesh):
+            got = serve.make_prefill_step(cfg32)(params, {"tokens": toks})
+            got = got.full_tensor()
+            got_greedy = serve.serve_loop(cfg32, params, prompt[:, :plen],
+                                          gen, dev, mesh=mesh)
+        seq = torch.as_tensor(np.concatenate([prompt[:, :plen],
+                                              greedy["tokens"]], 1),
+                              device=dev)
+        c_full = api.init_cache(plain32, B, seq.shape[1], dev)
+        c_tp = serve.init_cache(cfg32, B, seq.shape[1], dev, mesh)
+        dec_err, flips, ties, margins, dists = 0.0, 0, 0, [], []
+        with mesh_context(mesh):
+            for t in range(seq.shape[1] - 1):
+                a, c_full = api.decode_step(plain32, full, c_full, seq[:, t],
+                                            t)
+                b, c_tp = api.decode_step(cfg32, params, c_tp, seq[:, t], t)
+                b = b.full_tensor()
+                dist = (a - b).abs().max(-1).values
+                dec_err = max(dec_err, float(dist.max()))
+                if t < plen - 1:            # a prompt position
+                    continue
+                top = torch.topk(a, 2, dim=-1).values
+                margin = top[:, 0] - top[:, 1]
+                tie = margin <= 2 * dist
+                differ = a.argmax(-1) != b.argmax(-1)
+                flips += int((differ & ~tie).sum())
+                ties += int(tie.sum())
+                margins.append(margin.tolist())
+                dists.append(dist.tolist())
+    res["fp32_prefill_err"] = float((got - want).abs().max())
+    res["fp32_decode_err"] = dec_err
+    res["fp32_token_flips"] = flips
+    res["fp32_near_ties"] = ties
+    res["fp32_min_margin"] = min(min(m) for m in margins)
+    differ = np.argwhere(got_greedy["tokens"] != greedy["tokens"])
+    res["fp32_greedy_equal"] = not len(differ)
+    if len(differ):
+        # the first generated step where the rows part, and its row: up to
+        # there the two token streams are the same, so the teacher-forced
+        # margin and distance of that step are the free-running ones
+        step = int(differ[:, 1].min())
+        row = int(differ[differ[:, 1] == step][0, 0])
+        res["fp32_first_divergence"] = {
+            "step": step, "row": row, "margin": margins[step][row],
+            "distance": dists[step][row],
+            "near_tie": margins[step][row] <= 2 * dists[step][row]}
+    return res
+
+
+def _train_batch(cfg, dev):
+    rows, seq, _ = MESH_TRAIN_BATCH
+    toks = np.random.default_rng(SEED + 2).integers(0, cfg.vocab,
+                                                    (rows, seq + 1))
+    t = torch.as_tensor(toks, device=dev)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def _mesh_leaf_rel(a, b) -> float:
+    """max |a - b| over max |b| of two DTensors, reduced on the mesh."""
+    num = (a.float() - b.float()).abs().max().full_tensor()
+    return float(num / b.float().abs().max().full_tensor().clamp_min(1e-30))
+
+
+def train_rank(rank, world, ckpt_dir) -> dict:
+    """(b) Granite-8B at full width and MESH_TRAIN_LAYERS layers on a (2, 2)
+    mesh: the unsharded step (rank 0, first, then freed), then "auto",
+    "late" and "late" with compression; (d) the state saved, ranks 2 and 3
+    lost, restored onto (1, 2) by ranks 0-1 and stepped once more."""
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed.elastic import plan_mesh, remesh
+    from repro_torch.launch import shard
+    from repro_torch.launch.hlo_analysis import (CommRecord,
+                                                 collective_stats_from_comm)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (abstract_state, init_state,
+                                          make_train_step, state_specs)
+
+    dev = _rank_dev()
+    cfg = _granite(n_layers=MESH_TRAIN_LAYERS)
+    ga = MESH_TRAIN_BATCH[2]
+    batch = _train_batch(cfg, dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
+    res = {}
+    if rank == 0:                # the unsharded step, first, then freed
+        state = init_state(cfg, generator=gen(), device=dev)
+        new, m = make_train_step(cfg, grad_accum=ga)(state, batch)
+        want = [t.cpu() for t in leaves(new["params"])]
+        res["unsharded_loss"] = float(m["loss"])
+        del state, new, m
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    mesh = make_mesh(*MESH_TRAIN, device_type=MESH_DEVICE)
+    data_group = mesh.get_group("data").group_name
+    runs, grads = {}, {}
+    for name, kw in (("auto", {}), ("late", {"grad_sync": "late"}),
+                     ("late_compressed", {"grad_sync": "late",
+                                          "compress": True})):
+        state = init_state(cfg, generator=gen(), device=dev, mesh=mesh,
+                           compress=kw.get("compress", False))
+        step = make_train_step(cfg, grad_accum=ga, mesh=mesh, **kw)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with CommRecord() as comm:
+            (new, m), secs = timed(lambda: step(state, batch))
+        if name != "auto":
+            grads[name] = m["grads"]
+        err = {"loss": float(m["loss"])}
+        errs = []
+        for i, t in enumerate(leaves(new["params"])):
+            full = t.full_tensor()
+            if rank == 0:
+                w = want[i].to(dev)
+                errs.append(not torch.allclose(
+                    full.float(), w.float(), rtol=MESH_PARAM_RTOL,
+                    atol=MESH_PARAM_ATOL))
+                err.setdefault("param_max_abs_diff", 0.0)
+                err["param_max_abs_diff"] = max(
+                    err["param_max_abs_diff"],
+                    float((full.float() - w.float()).abs().max()))
+        err["params_outside_tol"] = sum(errs)
+        runs[name] = {**err, "step_s": secs, "peak_gib": _peak_gib(dev),
+                      "grad_sync": collective_stats_from_comm(
+                          comm, "grad_sync", data_group),
+                      "collectives": collective_stats_from_comm(comm),
+                      "ops": sorted({e["op"] for e in comm.entries})}
+        if name == "late_compressed":
+            kept = new
+        del new, m, state
+        torch.cuda.empty_cache()
+    res["runs"] = runs
+    res["compressed_grad_rel"] = max(
+        _mesh_leaf_rel(a, b) for a, b in zip(leaves(grads["late_compressed"]),
+                                             leaves(grads["late"])))
+    del grads
+    torch.cuda.empty_cache()
+
+    # (d) elastic restart from the compressed step's state: its int8 error
+    # feedback (opt["err"], a partial sum over "data") rides along
+    store = CheckpointStore(ckpt_dir, keep=1)
+    t0 = time.perf_counter()
+    store.save(kept, step=1)
+    res["save_s"] = time.perf_counter() - t0
+    saved = [t.full_tensor().cpu() for t in leaves(kept)]
+    saved = saved if rank < 2 else None
+    del kept
+    torch.cuda.empty_cache()
+    shape, axes = plan_mesh(2, model_size=MESH_TRAIN[0][1])
+    small = remesh([0, 1], model_size=MESH_TRAIN[0][1],
+                   device_type=MESH_DEVICE)
+    res["plan"] = [list(shape), list(axes)]
+    if rank >= 2:
+        return res
+    tmpl = abstract_state(cfg, compress=True)
+    t0 = time.perf_counter()
+    restored, at = store.restore_latest(
+        tmpl, placements=shard.named(state_specs(tmpl, small), small))
+    res["restore_s"] = time.perf_counter() - t0
+    res["restored_bit_equal"] = all(
+        torch.equal(a.full_tensor().cpu(), b)
+        for a, b in zip(leaves(restored), saved))
+    res["restored_mesh"] = list(small.shape)
+    half = {k: v[:2] for k, v in batch.items()}
+    (new, m), secs = timed(lambda: make_train_step(
+        cfg, grad_accum=ga, grad_sync="late", mesh=small, compress=True)(
+            restored, half))
+    res["after_restore"] = {
+        "step": at, "loss": float(m["loss"]), "step_s": secs,
+        "finite": bool(torch.isfinite(m["loss"]))
+        and all(bool(torch.isfinite(t.to_local()).all())
+                for t in leaves(new["params"]))}
+    return res
+
+
+def nccl_rank(rank, world) -> dict:
+    """(c) The late-sync step on a (1, 1) NCCL mesh of one rank against the
+    unsharded step, and ``compressed_psum`` against ``quantize_ef``."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import init_state, make_train_step
+    from repro_torch.optim import compress
+
+    dev = _rank_dev()
+    cfg = _granite(n_layers=MESH_TRAIN_LAYERS)
+    ga = MESH_TRAIN_BATCH[2]
+    batch = _train_batch(cfg, dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
+    new, m = make_train_step(cfg, grad_accum=ga)(
+        init_state(cfg, generator=gen(), device=dev), batch)
+    want = [t.clone() for t in leaves(new["params"])]
+    want_g = [t.clone() for t in leaves(m["grads"])]
+    want_loss = m["loss"].clone()
+    del new, m
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=MESH_DEVICE)
+    new, m = make_train_step(cfg, grad_accum=ga, grad_sync="late", mesh=mesh)(
+        init_state(cfg, generator=gen(), device=dev, mesh=mesh), batch)
+    params_equal = all(torch.equal(a.to_local(), b)
+                       for a, b in zip(leaves(new["params"]), want))
+    grad_diff = [float((a.to_local() - b).abs().max())
+                 for a, b in zip(leaves(m["grads"]), want_g)]
+    grads_equal = not any(grad_diff)
+    g = want_g[0]
+    err = torch.randn(g.shape, generator=torch.Generator(device=dev)
+                      .manual_seed(SEED), device=dev) * 1e-6
+    got, got_err = compress.compressed_psum(g, mesh.get_group("data"), err)
+    exp, exp_err = compress.quantize_ef({"g": g}, {"g": err})
+    return {"backend": torch.distributed.get_backend(),
+            "loss_equal": bool(torch.equal(m["loss"], want_loss)),
+            "grad_max_abs_diff": grad_diff,
+            "params_bit_equal": params_equal, "grads_bit_equal": grads_equal,
+            "compressed_psum_bit_equal": bool(
+                torch.equal(got, exp["g"]) and torch.equal(got_err,
+                                                           exp_err["g"]))}
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 13: the multi-device slice on the card."""
+    from repro_torch.launch.mesh import rank_backend, run_ranks
+
+    t_phase = time.perf_counter()
+    n_dev = torch.cuda.device_count()
+    note = (f"{SHARED}: {MESH_SERVE[0]} and {MESH_TRAIN[0]} meshes over "
+            f"{n_dev} card(s), {card}")
+    res = {"note": note, "card": card}
+    kw = dict(device_type=MESH_DEVICE, timeout_s=MESH_PG_TIMEOUT_S)
+
+    t0 = time.perf_counter()
+    served = run_ranks(tp_serve_rank, 2, (os.path.join(OUT, GRANITE_REF),),
+                       **kw)
+    res["tp_serve"] = {"seconds": time.perf_counter() - t0,
+                       "ranks": served}
+    cfg = _granite()
+    per_rank = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    for r, s in enumerate(served):
+        if s["backend"] != rank_backend(2, MESH_DEVICE):
+            raise AssertionError(f"rank {r} ran {s['backend']}")
+        if s["launches"].get("flash_attention") != cfg.n_layers or any(
+                s["plain"].values()):
+            raise AssertionError(f"TP prefill rank {r}: launches "
+                                 f"{s['launches']}, plain {s['plain']}")
+        shapes = {(q[2], k[2]) for q, k in s["flash_shapes"]}
+        if shapes != {per_rank}:
+            raise AssertionError(f"TP prefill rank {r}: flash on heads "
+                                 f"{shapes}, want {per_rank}")
+        if s["prefill_ops"] != ["all-reduce"]:
+            raise AssertionError(f"TP prefill rank {r} issued "
+                                 f"{s['prefill_ops']}: a weight gather")
+        if not (s["fp32_prefill_err"] <= FP32_PREFILL_TOL
+                and s["fp32_decode_err"] <= FP32_PREFILL_TOL
+                and s["fp32_token_flips"] == 0
+                and s.get("fp32_first_divergence", {"near_tie": True})[
+                    "near_tie"]):
+            raise AssertionError(
+                f"fp32 TP rank {r}: prefill {s['fp32_prefill_err']}, "
+                f"decode {s['fp32_decode_err']}, tokens flipped away from "
+                f"a tie {s['fp32_token_flips']}, free-running tokens part "
+                f"{s.get('fp32_first_divergence')}")
+    e = served[0]["err_vs_fp32"]
+    if not e["sharded"] <= LOGITS_FLASH_VS_XLA * e["unsharded"]:
+        raise AssertionError(f"TP prefill logits vs fp32: {e['sharded']} > "
+                             f"{LOGITS_FLASH_VS_XLA} x {e['unsharded']}")
+    tok = np.asarray(served[0]["tokens"])
+    if tok.shape != (GRANITE_PREFILL[0], 32) or not (
+            (tok >= 0) & (tok < cfg.vocab)).all():
+        raise AssertionError(f"TP serve loop tokens {tok.shape}")
+    log(f"phase 13a, Granite-8B TP=2 ({note}): prefill "
+        f"{GRANITE_PREFILL[0]}x{GRANITE_PREFILL[1]} "
+        f"{served[0]['prefill_ms']:.1f} ms; {per_rank[0]} q / {per_rank[1]} "
+        f"kv heads a rank, {cfg.n_layers} flash launches a rank; logits vs "
+        f"fp32 sharded {e['sharded']}, unsharded {e['unsharded']}; "
+        f"relative distance to the unsharded prefill "
+        f"{served[0]['sharded_vs_unsharded']}, argmax agreement "
+        f"{served[0]['argmax_agreement']}; decode "
+        f"{served[0]['decode_tokens_per_s']:.1f} tokens/s; fp32 "
+        f"{MESH_FP32_LAYERS} layers: prefill max |diff| "
+        f"{served[0]['fp32_prefill_err']}, teacher-forced decode "
+        f"{served[0]['fp32_decode_err']}, the unsharded greedy tokens kept "
+        f"({served[0]['fp32_near_ties']} near ties in {4 * 8} generated "
+        f"tokens, smallest top-2 margin {served[0]['fp32_min_margin']}), "
+        f"free-running greedy tokens equal: "
+        f"{served[0]['fp32_greedy_equal']}, first parting "
+        f"{served[0].get('fp32_first_divergence')}")
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(OUT, "mesh_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    trained = run_ranks(train_rank, 4, (ckpt,), **kw)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res["train"] = {"seconds": time.perf_counter() - t0, "ranks": trained}
+    t = trained[0]
+    ga = MESH_TRAIN_BATCH[2]
+    for name, run in t["runs"].items():
+        if abs(run["loss"] - t["unsharded_loss"]) > MESH_LOSS_TOL or run[
+                "params_outside_tol"]:
+            raise AssertionError(f"(2, 2) {name} step vs unsharded: {run}")
+    auto = t["runs"]["auto"]["grad_sync"]
+    late = t["runs"]["late"]["grad_sync"]
+    if auto["bytes_by_op"].get("all-reduce") != ga * late["bytes_by_op"].get(
+            "all-reduce", -1):
+        raise AssertionError(f"late sync bytes {late} vs auto {auto}")
+    if not t["compressed_grad_rel"] < MESH_COMPRESS_REL_TOL:
+        raise AssertionError(f"compressed grads {t['compressed_grad_rel']}")
+    if not (t["restored_bit_equal"] and t["after_restore"]["finite"]
+            and t["plan"] == [[1, 2], ["data", "model"]]):
+        raise AssertionError(f"elastic restore: {t}")
+    log(f"phase 13b/d, Granite-8B {MESH_TRAIN_LAYERS} layers on (2, 2) "
+        f"({note}): loss unsharded {t['unsharded_loss']}, "
+        + ", ".join(f"{n} {r['loss']} ({r['step_s']:.2f} s/step)"
+                    for n, r in t["runs"].items())
+        + f"; gradient all-reduce bytes over the data group: auto "
+        f"{auto['bytes_by_op']['all-reduce']}, late "
+        f"{late['bytes_by_op']['all-reduce']} (1/{ga}); compressed grads "
+        f"rel {t['compressed_grad_rel']}; the compressed step's state (its "
+        f"int8 error feedback included) restored onto (1, 2) bit-equal, "
+        f"save {t['save_s']:.1f} s, restore {t['restore_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    nccl = run_ranks(nccl_rank, 1, (), **kw)[0]
+    res["nccl"] = {**nccl, "seconds": time.perf_counter() - t0}
+    if nccl["backend"] != "nccl" or not all(
+            nccl[k] for k in ("loss_equal", "params_bit_equal",
+                              "grads_bit_equal",
+                              "compressed_psum_bit_equal")):
+        raise AssertionError(f"NCCL (1, 1): {nccl}")
+    log(f"phase 13c: NCCL (1, 1) late-sync step bit-equal to the unsharded "
+        f"one, compressed_psum bit-equal to quantize_ef")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh phase took {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     global OUT
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2774,6 +3321,9 @@ def main() -> int:
     log(f"training on {card}: " + json.dumps(
         {k: v for k, v in training.items() if k != "zamba2"}))
     log(f"phases 2-12 took {time.perf_counter() - t_start:.1f} s")
+    mesh = mesh_phase(card)
+    os.remove(os.path.join(OUT, GRANITE_REF))
+    log(f"phases 2-13 took {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, replaces, cuda_kernels in (
@@ -2821,7 +3371,12 @@ def main() -> int:
         "bound_ms": flash_t["bound_ms"],
         "bound_by": ("bytes" if flash_t["bound_bytes_ms"]
                      >= flash_t["bound_ops_ms"] else "operations"),
-        "library_ms": flash_t["library_ms"]})
+        "library_ms": flash_t["library_ms"],
+        "tp_prefill_launches_per_rank": [
+            r["launches"]["flash_attention"]
+            for r in mesh["tp_serve"]["ranks"]],
+        "tp_prefill_heads_per_rank": mesh["tp_serve"]["ranks"][0][
+            "flash_shapes"]})
     xl = scan_t["xlstm-1.3b"]
     n_scan = recurrent["xlstm-1.3b"]["launches"]["ssm_scan"]
     kernels.append({
@@ -2868,6 +3423,9 @@ def main() -> int:
     checked["seamless"] = seamless
     checked["training"] = {k: v for k, v in training.items()
                            if k != "zamba2"}
+    checked["mesh"] = mesh
+    for r in mesh["tp_serve"]["ranks"]:
+        r.pop("tokens")
     checked["training"]["zamba2"] = {
         k: v for k, v in training["zamba2"].items()
         if k not in ("train_step_profile", "grad_norms_step1")}

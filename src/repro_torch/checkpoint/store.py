@@ -16,7 +16,12 @@ the index, as the reference does.  ``save(..., async_write=True)`` copies
 the leaves to host memory before it returns and writes them on a
 background thread; every directory change (write, gc) holds one lock.
 ``restore`` rebuilds the state on a template (real or ``meta`` tensors) and
-places it on a device.
+places it on a device, or with ``placements=`` (``shard.named(...)`` of the
+state's specs) on a mesh: each full leaf becomes a DTensor there, whatever
+mesh wrote it.  A state of DTensors is saved as full leaves
+(``full_tensor()``, a collective every rank of the mesh joins), written by
+rank 0; ``wait`` (and a synchronous save) then holds every rank until the
+step is committed, so the format stays the reference's topology-free one.
 """
 from __future__ import annotations
 
@@ -27,9 +32,11 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.executor import resolve_device
-from repro_torch.core.tree import leaves, unflatten
+from repro_torch.core.tree import leaves, tree_map, unflatten
 
 _NP_DTYPES = {"float32": np.float32, "float16": np.float16,
               "float64": np.float64, "int32": np.int32, "int64": np.int64,
@@ -68,13 +75,22 @@ class CheckpointStore:
         self._io_lock = threading.Lock()
         # guards the _thread handle so concurrent wait()s are idempotent
         self._state_lock = threading.Lock()
+        self._barrier = False       # the last save was of DTensors
 
     # ------------------------------------------------------------------ save
     def save(self, state, step: int, async_write: bool = False,
              extra: dict | None = None) -> str:
         # a snapshot on the host, taken before save returns
-        host_leaves = [t.detach().to("cpu", copy=True) for t in leaves(state)]
+        flat = leaves(state)
+        distributed = any(isinstance(t, DTensor) for t in flat)
+        host_leaves = [(t.full_tensor() if isinstance(t, DTensor) else t)
+                       .detach().to("cpu", copy=True) for t in flat]
         path = os.path.join(self.root, f"step_{step:08d}")
+        self._barrier = distributed
+        if distributed and dist.get_rank() != 0:
+            if not async_write:
+                self.wait()
+            return path
 
         def write():
             # one writer at a time: a sync save overlapping an async one
@@ -110,17 +126,24 @@ class CheckpointStore:
                 self._thread.start()
         else:
             write()
+            if distributed:
+                self.wait()
         return path
 
     def wait(self) -> None:
         """Block until the outstanding background write (if any) finishes.
         Idempotent and safe under concurrent callers: the thread handle is
         claimed under a lock, so every waiter joins (or finds nothing) and
-        a double wait is a no-op."""
+        a double wait is a no-op.  After a save of DTensors every rank of
+        the process group calls it, and it returns once rank 0's write is
+        committed."""
         with self._state_lock:
             t, self._thread = self._thread, None
         if t is not None:
             t.join()
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self) -> None:
         # only ever called from write(), under _io_lock: gc never races an
@@ -139,11 +162,12 @@ class CheckpointStore:
                 out.append(int(d.split("_")[1]))
         return sorted(out)
 
-    def restore(self, step: int, template, device=None):
+    def restore(self, step: int, template, device=None, *, placements=None):
         """The state saved at ``step``, shaped like ``template`` (nested
         dictionaries of tensors, ``meta`` ones included), on ``device``:
-        by default the template's, or CUDA for a ``meta`` template.
-        Returns (state, step)."""
+        by default the template's, or CUDA for a ``meta`` template; with
+        ``placements`` (a tree of ``shard.Named`` like the template) each
+        leaf a DTensor placed by its ``Named``.  Returns (state, step)."""
         path = os.path.join(self.root, f"step_{step:08d}")
         with open(os.path.join(path, "index.json")) as f:
             index = json.load(f)
@@ -153,7 +177,8 @@ class CheckpointStore:
                              f"{index['n_leaves']} vs template {len(flat)}")
         if device is None and flat and flat[0].device.type != "meta":
             device = flat[0].device
-        dev = resolve_device(device)
+        # placed leaves go to their mesh's device from the host
+        dev = None if placements is not None else resolve_device(device)
         out = []
         for i, tmpl in enumerate(flat):
             arr = np.load(os.path.join(path, f"leaf_{i}_host0.npy"))
@@ -162,11 +187,15 @@ class CheckpointStore:
                 raise ValueError(f"leaf {i}: checkpoint {t.dtype}"
                                  f"{tuple(t.shape)}, template {tmpl.dtype}"
                                  f"{tuple(tmpl.shape)}")
-            out.append(t.to(dev))
-        return unflatten(template, out), index["step"]
+            out.append(t if dev is None else t.to(dev))
+        state = unflatten(template, out)
+        if placements is not None:
+            state = tree_map(lambda t, n: n.place(t), state, placements)
+        return state, index["step"]
 
-    def restore_latest(self, template, device=None):
+    def restore_latest(self, template, device=None, *, placements=None):
         steps = self.steps()
         if not steps:
             return None
-        return self.restore(steps[-1], template, device)
+        return self.restore(steps[-1], template, device,
+                            placements=placements)

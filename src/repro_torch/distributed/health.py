@@ -1,4 +1,5 @@
-# Copied from src/repro/distributed/health.py; imports point at repro_torch.
+# Copied from src/repro/distributed/health.py; imports point at repro_torch;
+# ``shardings`` reaches the port's store as ``placements=``.
 """Fault-tolerance plumbing: heartbeats, straggler detection, retry loop.
 
 At thousand-node scale the failure model is: (a) hosts vanish (heartbeat
@@ -79,8 +80,11 @@ def run_with_retries(make_state, run_fn, ckpt_store, policy: RetryPolicy,
     """Launcher loop: run -> on failure restore latest checkpoint -> retry.
 
     ``run_fn(state, start_step) -> (state, completed)`` raises on failure.
+    ``shardings`` (``shard.named(...)`` of the state's specs) places the
+    restored state on the mesh they name.
     """
-    restored = ckpt_store.restore_latest(abstract_state, shardings)
+    restored = ckpt_store.restore_latest(abstract_state,
+                                         placements=shardings)
     state, start = restored if restored is not None else (make_state(), 0)
     while True:
         try:
@@ -89,6 +93,7 @@ def run_with_retries(make_state, run_fn, ckpt_store, policy: RetryPolicy,
             if not policy.should_retry():
                 raise
             policy.record()
-            restored = ckpt_store.restore_latest(abstract_state, shardings)
+            restored = ckpt_store.restore_latest(abstract_state,
+                                                 placements=shardings)
             state, start = (restored if restored is not None
                             else (make_state(), 0))

@@ -798,3 +798,45 @@ def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
                     chain=launch.stages, oh=oh, ow=ow, oc=oc, tile=tile,
                     packed=prepared.get("packed"))
     return {launch.out_name: y}
+
+
+# ------------------------------------------------------------ legacy wrapper
+def supports(*, depthwise=False, **_ignored) -> bool:
+    """What the chain kernel accepts (the reference's ``supports``).
+    Depthwise convolution is the only structural exclusion; dilation,
+    anisotropic strides and kernels and ceil or padded pool tails run
+    through the kernel's padded coordinates (other keyword capabilities
+    are accepted and ignored, as in the reference)."""
+    return not depthwise
+
+
+def fused_conv_block(x, w, b, *, stride=(1, 1), pad=(0, 0), shift=0,
+                     relu=False, pool=None, eltwise=None):
+    """Single conv (+maxpool | +eltwise) as a 1-2 stage chain through
+    ``fused_chain`` (the reference's legacy wrapper, without its
+    ``interpret``: the tensor's device picks kernel or plain version).
+
+    eltwise = (side, s_conv, s_side, relu_out) or None; pool = (kp, sp)
+    with VALID floor semantics."""
+    n, h, w_, ic = x.shape
+    kh, kw, _, oc = w.shape
+    sh, sw = stride
+    ph, pw = pad
+    oh = (h + 2 * ph - kh) // sh + 1
+    ow = (w_ + 2 * pw - kw) // sw + 1
+    stages = [("conv", "w0", kh, kw, sh, sw, ph, pw, 1, 1,
+               int(shift), bool(relu), oh, ow)]
+    sides = ()
+    if pool is not None:
+        kp, sp = pool
+        oh = (oh - kp) // sp + 1
+        ow = (ow - kp) // sp + 1
+        stages.append(("pool", "p0", "max", kp, kp, sp, sp, 0, 0, oh, ow,
+                       kp * kp))
+    if eltwise is not None:
+        side, s_conv, s_side, relu_out = eltwise
+        stages.append(("elt", "e0", int(s_conv), int(s_side),
+                       bool(relu_out), oh, ow))
+        sides = (side,)
+    return fused_chain(x, (w,), (b,), sides, chain=tuple(stages), oh=oh,
+                       ow=ow, oc=oc)

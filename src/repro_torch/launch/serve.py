@@ -7,7 +7,10 @@
     python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
     python -m repro_torch.launch.serve --arch seamless-m4t-large-v2
 
-Runs on CUDA unless ``--device cpu`` is given.
+Runs on CUDA unless ``--device cpu`` is given.  With DTensor params
+(``shard.named(shard.param_specs(...))``) the steps run tensor-parallel,
+and ``serve_loop(..., mesh=)`` places its KV cache by ``shard.cache_specs``
+(kv heads over "model", batch over the data axes).
 """
 from __future__ import annotations
 
@@ -16,10 +19,13 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get as get_cfg
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.executor import resolve_device
+from repro_torch.core.tree import tree_map
+from repro_torch.launch import shard
 from repro_torch.models import api
 from repro_torch.nn import encdec
 
@@ -45,6 +51,8 @@ def make_serve_step(cfg: ArchConfig):
     def serve_step(params, cache, tokens, pos):
         logits, cache = api.decode_step(cfg, params, cache, tokens, pos)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if isinstance(next_tok, DTensor):     # (B,) ids: every rank's
+            next_tok = next_tok.full_tensor()
         return next_tok, cache
 
     return serve_step
@@ -55,18 +63,37 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-@torch.inference_mode()
-def serve_loop(cfg: ArchConfig, params, prompt, gen_len: int, device=None):
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None,
+               mesh=None):
+    """``api.init_cache``, placed on ``mesh`` by ``shard.cache_specs``
+    where one is given (each rank keeps its shard of the zeros)."""
+    cache = api.init_cache(cfg, batch, max_len, device)
+    if mesh is None:
+        return cache
+    return tree_map(lambda t, n: n.place(t), cache,
+                    shard.named(shard.cache_specs(cache, cfg, mesh), mesh))
+
+
+def serve_loop(cfg: ArchConfig, params, prompt, gen_len: int, device=None,
+               mesh=None):
     """``main``'s request loop: the prompt (B, P) is fed token by token
     through the decode step (teacher-forced prefill-by-decode, which fills
-    the cache), then ``gen_len`` tokens are decoded greedily.
+    the cache), then ``gen_len`` tokens are decoded greedily.  On ``mesh``
+    (DTensor params) the cache is placed by ``shard.cache_specs``.
 
     Returns {"tokens": (B, gen_len) int32 numpy, "prefill_s", "decode_s"}
-    (host seconds, each ending in a device synchronize)."""
+    (host seconds, each ending in a device synchronize).  Runs under
+    ``inference_mode``, or ``no_grad`` on a mesh (DTensor ops cannot
+    take inference tensors)."""
+    with torch.no_grad() if mesh is not None else torch.inference_mode():
+        return _serve_loop(cfg, params, prompt, gen_len, device, mesh)
+
+
+def _serve_loop(cfg, params, prompt, gen_len, device, mesh):
     dev = resolve_device(device)
     b, plen = prompt.shape
     max_len = plen + gen_len
-    cache = api.init_cache(cfg, b, max_len, dev)
+    cache = init_cache(cfg, b, max_len, dev, mesh)
     serve = make_serve_step(cfg)
     prompt = torch.as_tensor(np.asarray(prompt, np.int64), device=dev)
     t0 = time.perf_counter()

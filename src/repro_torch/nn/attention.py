@@ -1,16 +1,37 @@
 # Ported from src/repro/nn/attention.py (jax.numpy -> torch).
 """GQA attention: full / causal / sliding-window, prefill and single-token
 decode with a KV cache, and the hand-written flash kernel for the
-score+softmax+value contraction of a causal prefill (``impl="flash"``)."""
+score+softmax+value contraction of a causal prefill (``impl="flash"``).
+
+Attention is independent per head, so on DTensors (tensor-parallel, q, k
+and v sharded on the head dim, the batch on the data axes) ``sdpa`` and
+``decode_attend`` run on each rank's local heads through ``local_map``:
+the kernel, whose ``ctypes`` launch cannot take a DTensor, sees plain
+tensors of the rank's H/model q heads and KV/model kv heads.  Heads that
+do not divide the model axis replicate; a decode cache whose sequence is
+sharded instead (``shard.cache_specs``) combines the ranks' partial
+softmaxes with all-reduces (flash-decode)."""
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as fc
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.nn.layers import gather_dim
 
 NEG = -1e30
 
 
 def _split_heads(x, n_heads, d_head):
     b, s, _ = x.shape
+    if isinstance(x, DTensor):
+        ways = 1
+        for i, p in enumerate(x.placements):
+            if isinstance(p, Shard) and p.dim == x.ndim - 1:
+                ways *= x.device_mesh.size(i)
+        if n_heads % ways:          # heads that do not divide replicate
+            x = gather_dim(x, -1)
     return x.reshape(b, s, n_heads, d_head)
 
 
@@ -31,6 +52,10 @@ def sdpa(q, k, v, *, causal: bool = True, window: int = 0,
     ``q_offset``: absolute position of q[0] (decode: Sk-1 or cache length).
     ``kv_len_mask``: optional (B, Sk) validity mask (ragged decode caches).
     """
+    if isinstance(q, DTensor):
+        return _per_head(sdpa, q, k, v, causal=causal, window=window,
+                         q_offset=q_offset, impl=impl,
+                         kv_len_mask=kv_len_mask)
     if impl == "flash" and causal and window == 0 and kv_len_mask is None:
         from repro_torch.kernels.flash_attention import ops as flash
 
@@ -57,6 +82,50 @@ def sdpa(q, k, v, *, causal: bool = True, window: int = 0,
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
     return out.reshape(b, sq, h, d)
+
+
+def _head_matched(q, k):
+    """q replicated on each mesh dim where it is head-sharded and the kv
+    heads are not (they do not divide), so each rank's local q heads read
+    the kv heads it holds (q head h reads kv head h // (H/KV))."""
+    want = tuple(Replicate() if pq == Shard(2) and pk != Shard(2) else pq
+                 for pq, pk in zip(q.placements, k.placements))
+    return q if want == q.placements else q.redistribute(q.device_mesh,
+                                                           want)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: the
+    local gradients of q, k and v leave ``local_map`` into the DTensor
+    reshape of the heads, whose backward is a ``view`` of the local
+    shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _per_head(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` on each rank's local heads and rows; the output
+    takes q's placements."""
+    q = _head_matched(q, k)
+    kw = {n: (x.to_local() if isinstance(x, DTensor) else x)
+          for n, x in kw.items()}
+
+    def local(a, b, c):
+        if torch.is_grad_enabled():
+            a, b, c = (_ContiguousGrad.apply(t) for t in (a, b, c))
+        return fn(a, b, c, **kw)
+
+    return local_map(local,
+                     out_placements=list(q.placements),
+                     in_placements=(q.placements, k.placements,
+                                    v.placements),
+                     device_mesh=q.device_mesh)(q, k, v)
 
 
 def sdpa_chunked(q, k, v, *, causal=True, window=0, q_offset=0,
@@ -116,9 +185,36 @@ def cache_update(cache, k_new, v_new, pos: int, window: int = 0):
     is in place: ``cache`` itself is updated and returned, so a stacked
     cache whose layer views were passed in changes with it."""
     slot = (pos % window) if window else pos
-    cache["k"][:, slot:slot + 1] = k_new
-    cache["v"][:, slot:slot + 1] = v_new
+    for name, new in (("k", k_new), ("v", v_new)):
+        # a sharded cache is written through its local shard, laid out as
+        # the new entry's but for a sharded sequence: only the rank that
+        # holds the slot writes it
+        c = cache[name]
+        local, start = _local(c), _seq_start(c)
+        if start <= slot < start + local.shape[1]:
+            local[:, slot - start:slot - start + 1] = _local(new)
     return cache
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _seq_dims(t) -> list[int]:
+    """The mesh dims that shard a (B, S, KV, D) cache's sequence."""
+    if not isinstance(t, DTensor):
+        return []
+    return [i for i, p in enumerate(t.placements)
+            if isinstance(p, Shard) and p.dim == 1]
+
+
+def _seq_start(t) -> int:
+    """The first sequence slot of this rank's shard (major to minor over
+    the mesh dims that shard it)."""
+    idx = 0
+    for i in _seq_dims(t):
+        idx = idx * t.device_mesh.size(i) + t.device_mesh.get_local_rank(i)
+    return idx * _local(t).shape[1]
 
 
 def decode_attend(q, cache, pos: int, *, window: int = 0):
@@ -127,6 +223,13 @@ def decode_attend(q, cache, pos: int, *, window: int = 0):
     Full attention: attends to cache[:pos+1].  SWA: rolling buffer masked to
     the last ``window`` positions (no re-ordering needed: softmax is
     permutation-invariant over keys)."""
+    if isinstance(q, DTensor) and _seq_dims(cache["k"]):
+        return _decode_seq_sharded(q, cache, pos, window)
+    if isinstance(q, DTensor):
+        return _per_head(
+            lambda q, k, v: decode_attend(q, {"k": k, "v": v}, pos,
+                                          window=window),
+            q, cache["k"], cache["v"])
     b, _, h, d = q.shape
     k, v = cache["k"], cache["v"]
     sk, kv = k.shape[1], k.shape[2]
@@ -143,3 +246,36 @@ def decode_attend(q, cache, pos: int, *, window: int = 0):
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
     return out.reshape(b, 1, h, d)
+
+
+def _decode_seq_sharded(q, cache, pos: int, window: int):
+    """Decode against a cache whose sequence is sharded (its kv heads do
+    not divide the model axis, or the batch is too small for the data
+    axes): each rank scores its own slots, and one max and two sum
+    all-reduces over the sequence's mesh dims combine the partial
+    softmaxes (flash-decode).  Heads that the cache does not shard are
+    whole on every rank, so q's are gathered where they are sharded."""
+    k, v = cache["k"], cache["v"]
+    q = _head_matched(q, k)
+    mesh = k.device_mesh
+    groups = [mesh.get_group(i) for i in _seq_dims(k)]
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    b, _, h, d = ql.shape
+    sk, kv = kl.shape[1], kl.shape[2]
+    qg = ql.reshape(b, 1, kv, h // kv, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kl).float()
+    logits = logits * (1.0 / d ** 0.5)
+    slots = torch.arange(sk, device=ql.device) + _seq_start(k)
+    valid = slots < min(pos + 1, window) if window else slots <= pos
+    logits = logits.masked_fill(~valid, NEG)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    for g in groups:
+        m = fc.all_reduce(m, "max", g)
+    p = torch.exp(logits - m)
+    den = torch.sum(p, dim=-1, keepdim=True)
+    num = torch.einsum("bkgqs,bskd->bkgqd", p, vl.float())
+    for g in groups:
+        den = fc.all_reduce(den, "sum", g)
+        num = fc.all_reduce(num, "sum", g)
+    out = (num / den).to(ql.dtype).permute(0, 3, 1, 2, 4).reshape(b, 1, h, d)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)

@@ -1,10 +1,12 @@
 # Ported from src/repro/nn/layers.py (jax.numpy -> torch).
-"""Common layers: norms, rotary embeddings (incl. M-RoPE), MLPs, MoE.
+"""Common layers: norms, rotary embeddings (incl. M-RoPE), MLPs, MoE, the
+activation sharding constraint (``constrain``) and ``remat`` (the port's
+``jax.remat``).
 
-The reference's sharding helpers (``constrain``, ``_mesh_dims``) are left
-out: the port runs on one card, and the distributed item of the ROADMAP
-brings them back on ``torch.distributed``.  ``remat`` is the port's
-``jax.remat``.
+Under ``distributed.mesh_state.mesh_context`` with DTensor parameters the
+same code runs tensor-parallel: DTensor propagates the placements through
+each op and ``constrain`` pins the ones the reference pins.  Outside a mesh
+every helper here is the identity on plain tensors.
 """
 from __future__ import annotations
 
@@ -12,7 +14,13 @@ import functools
 
 import torch
 import torch.nn.functional as F
+import torch.distributed._functional_collectives as fc
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils import checkpoint as ckpt
+
+from repro_torch.distributed.mesh_state import (P, current_mesh, mesh_dims,
+                                                placements)
 
 # the products the "dots" remat policy keeps (the reference's
 # ``dots_saveable``): what ``@``, ``einsum`` and ``F.linear`` dispatch to
@@ -42,6 +50,117 @@ def remat(body, *, dots: bool = False):
                                context_fn=context_fn)
 
     return run
+
+
+def _mesh_dims():
+    """{axis name: size} of the mesh in effect, or None."""
+    mesh = current_mesh()
+    return None if mesh is None else mesh_dims(mesh)
+
+
+def constrain(x, *logical):
+    """Megatron-style activation sharding constraint.
+
+    ``logical`` entries: "dp" (batch over the pod and data axes), "tp" (the
+    model axis), None.  For a DTensor under a mesh context it becomes
+    ``x.redistribute`` to those placements (a Partial sum after a
+    row-parallel product is all-reduced here); the identity outside a mesh
+    context, on a plain tensor, or when no dim divides — so the same model
+    code runs on one card and on a mesh."""
+    dims = _mesh_dims()
+    if dims is None or not isinstance(x, DTensor):
+        return x
+    spec = []
+    for d, s in zip(x.shape, logical):
+        if s == "dp":
+            axes = tuple(a for a in ("pod", "data") if a in dims)
+            size = 1
+            for a in axes:
+                size *= dims[a]
+            spec.append(axes if axes and d % size == 0 and d >= size else None)
+        elif s == "tp":
+            ok = "model" in dims and d % dims["model"] == 0 \
+                and d >= dims["model"]
+            spec.append("model" if ok else None)
+        else:
+            spec.append(None)
+    if all(s is None for s in spec):
+        return x
+    return x.redistribute(x.device_mesh, placements(P(*spec), x.device_mesh))
+
+
+def gather_dim(x, dim: int):
+    """A DTensor whole along ``dim`` (the mesh dims that shard it
+    replicate; the others keep their placements); a plain tensor as it
+    is."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+            for p in x.placements]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def replicate_like(t, x):
+    """``t`` (a plain tensor made inside the model: positions, masks,
+    frequencies) as a replicated DTensor on ``x``'s mesh where ``x`` is a
+    DTensor, so the two can meet in one op; else ``t`` itself."""
+    if not isinstance(x, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Forward: the all-reduce (sum) of the ranks' partial lookups over the
+    vocab-sharded group; backward: the identity (each rank's partial
+    feeds the sum with weight one) — Megatron's reduce-from-TP region."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        return fc.all_reduce(y, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def vocab_parallel_embedding(tokens, table):
+    """``F.embedding(tokens, table)`` for a DTensor table sharded on its
+    vocab dim over one mesh dim: each rank looks its tokens up in its own
+    rows (zeros elsewhere) and one all-reduce over that dim sums them, so
+    the table is never gathered.  The output is replicated over the vocab
+    dim's mesh dim and takes the tokens' placements on the others; the
+    table's gradient is partial over the mesh dims that shard the rows of
+    ``tokens``."""
+    mesh = table.device_mesh
+    tokens = replicate_like(tokens, table)
+    vdim = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    if len(vdim) != 1:            # a whole table: index it as one card does
+        return table[tokens]
+    vdim = vdim[0]
+    group = mesh.get_group(vdim)
+    rows = table.to_local().shape[0]
+    start = mesh.get_local_rank(vdim) * rows
+
+    def local(tok, tab):
+        off = tok - start
+        miss = (off < 0) | (off >= rows)
+        y = F.embedding(off.masked_fill(miss, 0), tab)
+        return _SumOverGroup.apply(y.masked_fill(miss[..., None], 0), group)
+
+    out_pl = [Replicate() if i == vdim else p
+              for i, p in enumerate(tokens.placements)]
+    grad_pl = [p if i == vdim else (Partial() if isinstance(
+        tokens.placements[i], Shard) else Replicate())
+        for i, p in enumerate(table.placements)]
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(tokens.placements, table.placements),
+                     in_grad_placements=(tokens.placements, grad_pl),
+                     device_mesh=mesh)(tokens, table)
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):
@@ -75,7 +194,7 @@ def _rotate(x, ang):
 
 def apply_rope(x, positions, theta: float = 1e6):
     """x (..., S, H, D); positions (..., S) int."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)     # (D/2,)
+    inv = replicate_like(rope_freqs(x.shape[-1], theta, x.device), x)
     ang = positions[..., None].float() * inv           # (..., S, D/2)
     return _rotate(x, ang)
 
@@ -103,7 +222,8 @@ def mlp(x, p, act: str):
         h = F.silu(x @ p["w1"]) * (x @ p["w3"])
     else:
         h = F.gelu(x @ p["w1"], approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["w2"]
+    h = constrain(h, "dp", None, "tp")      # keep hidden model-sharded
+    return constrain(h @ p["w2"], "dp", None, None)
 
 
 def moe_mlp(x, p, act: str, top_k: int = 2):
@@ -122,8 +242,9 @@ def moe_mlp(x, p, act: str, top_k: int = 2):
         h = F.silu(h1) * torch.einsum("bsd,edf->bsef", x, p["w3"])
     else:
         h = F.gelu(h1, approximate="tanh")
+    h = constrain(h, "dp", None, None, "tp")
     y = torch.einsum("bsef,efd->bsed", h, p["w2"])
-    out = torch.einsum("bsed,bse->bsd", y, gate)
+    out = constrain(torch.einsum("bsed,bse->bsd", y, gate), "dp", None, None)
     aux = _load_balance_loss(probs, idxs, e)
     return out, aux
 

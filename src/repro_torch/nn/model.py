@@ -4,11 +4,17 @@
 Layer parameters are stacked on a leading L axis, as in the reference's
 pytree; the reference's ``lax.scan`` over layers is a Python loop over that
 axis, each layer under ``_remat`` (the reference's layer remat policy).
-``lm_loss`` is the families' shared cross-entropy.
+``lm_loss`` is the families' shared cross-entropy.  With DTensor
+parameters under a mesh context the dense family runs tensor-parallel: the
+reference's ``constrain`` calls pin q, k, v, o, the residual and the
+logits, and the token lookup is vocab-parallel
+(``layers.vocab_parallel_embedding``) where indexing would gather the
+table.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention as attn
@@ -30,8 +36,10 @@ def _remat(cfg: ArchConfig, body):
 
 def lm_loss(logits, labels):
     """Mean next-token cross-entropy: fp32 logsumexp minus the label's
-    logit, as every reference family computes it."""
-    logits = logits.float()
+    logit, as every reference family computes it (vocab-sharded logits are
+    gathered over the model axis first)."""
+    logits = nnl.gather_dim(logits, -1).float()
+    labels = nnl.replicate_like(labels, logits)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - ll)
@@ -116,19 +124,28 @@ def _ffn(cfg: ArchConfig, h, lp):
     return nnl.mlp(h, lp, cfg.act), 0.0
 
 
+def _embed(cfg: ArchConfig, params, tokens):
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        return nnl.vocab_parallel_embedding(tokens, table).to(_dtype(cfg))
+    return table[tokens].to(_dtype(cfg))
+
+
 def _unembed(params, x):
     w_out = params.get("unembed", params["embed"])
-    return x @ w_out.T.to(x.dtype)
+    return nnl.constrain(x @ w_out.T.to(x.dtype), "dp", None, "tp")
 
 
 # -------------------------------------------------------------------- forward
 def _layer(cfg: ArchConfig, x, lp, pos, impl):
     h = nnl.rms_norm(x, lp["ln1"])
     q, k, v = attn.qkv(h, lp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    q = _rope(cfg, q, pos)
-    k = _rope(cfg, k, pos)
+    q = nnl.constrain(_rope(cfg, q, pos), "dp", None, "tp", None)
+    k = nnl.constrain(_rope(cfg, k, pos), "dp", None, "tp", None)
+    v = nnl.constrain(v, "dp", None, "tp", None)
     o = attn.sdpa(q, k, v, causal=True, window=cfg.window, impl=impl)
-    x = x + attn.attn_out(o, lp)
+    o = nnl.constrain(o, "dp", None, "tp", None)
+    x = x + nnl.constrain(attn.attn_out(o, lp), "dp", None, None)
     y, aux = _ffn(cfg, nnl.rms_norm(x, lp["ln2"]), lp)
     return x + y, aux
 
@@ -137,11 +154,11 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
     """tokens (B, S_text); patch_embeds (B, n_patches, D) for VLM.
 
     Returns (logits (B,S,V), aux_loss)."""
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = _embed(cfg, params, tokens)
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
-    pos = positions_for(cfg, b, s, device=x.device)
+    pos = nnl.replicate_like(positions_for(cfg, b, s, device=x.device), x)
 
     def body(x, lp):
         return _layer(cfg, x, lp, pos, cfg.attn_impl)
@@ -178,21 +195,23 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     Returns (logits (B,V), cache).  The cache is updated in place (see
     ``attention.cache_update``) and returned."""
     pos = int(pos)
-    x = params["embed"][tokens][:, None, :].to(_dtype(cfg))
+    x = _embed(cfg, params, tokens)[:, None, :]
     b = x.shape[0]
     shape = (3, b, 1) if cfg.mrope else (b, 1)
-    p = torch.full(shape, pos, dtype=torch.int32, device=x.device)
+    p = nnl.replicate_like(torch.full(shape, pos, dtype=torch.int32,
+                                      device=x.device), x)
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
         h = nnl.rms_norm(x, lp["ln1"])
         q, k, v = attn.qkv(h, lp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-        q = _rope(cfg, q, p)
-        k = _rope(cfg, k, p)
+        q = nnl.constrain(_rope(cfg, q, p), "dp", None, "tp", None)
+        k = nnl.constrain(_rope(cfg, k, p), "dp", None, "tp", None)
+        v = nnl.constrain(v, "dp", None, "tp", None)
         layer_cache = attn.cache_update({"k": cache["k"][i],
                                          "v": cache["v"][i]}, k, v, pos,
                                         window=cfg.window)
         o = attn.decode_attend(q, layer_cache, pos, window=cfg.window)
-        x = x + attn.attn_out(o, lp)
+        x = x + nnl.constrain(attn.attn_out(o, lp), "dp", None, None)
         y, _ = _ffn(cfg, nnl.rms_norm(x, lp["ln2"]), lp)
         x = x + y
     x = nnl.rms_norm(x, params["ln_f"])

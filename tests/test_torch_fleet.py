@@ -486,7 +486,8 @@ def test_retry_policy_and_restart_loop():
     class Store:
         saved = None
 
-        def restore_latest(self, abstract_state, shardings=None):
+        def restore_latest(self, abstract_state, device=None, *,
+                           placements=None):    # the port store's call
             return self.saved
 
     store, attempts = Store(), []

@@ -287,12 +287,43 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(
         store.restore(1, {"w": torch.empty(2, device="meta")})
 
 
+def test_port_has_every_reference_module():
+    """Every module of the JAX package has a file at the same path in the
+    port, apart from the Pallas kernels and their oracles, whose work the
+    port's ``ops.py`` and ``csrc/`` do."""
+    ref = ROOT / "src" / "repro"
+    kernels = {"kernels/conv_fused/conv_fused.py",
+               "kernels/flash_attention/flash_attention.py",
+               "kernels/flash_attention/ref.py",
+               "kernels/ssm_scan/ssm_scan.py", "kernels/ssm_scan/ref.py"}
+    missing = {str(f.relative_to(ref)) for f in ref.rglob("*.py")
+               if not (PORT / f.relative_to(ref)).exists()}
+    assert missing == kernels
+
+
 def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+def test_model_layers_import_no_launcher():
+    """``nn/`` and ``models/`` sit below ``launch/``: they read the mesh
+    in effect and the placement vocabulary from ``distributed.mesh_state``
+    and import nothing of the launchers, so no import cycle can form."""
+    launch = re.compile(r"^\s*(from|import)\s+repro_torch\.launch(\.|\s)",
+                        re.MULTILINE)
+    files = sorted((PORT / "nn").glob("*.py")) + sorted(
+        (PORT / "models").glob("*.py")) + [
+        PORT / "distributed" / "mesh_state.py"]
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if launch.search(f.read_text())]
+    assert offenders == []
+    mesh_state = (PORT / "distributed" / "mesh_state.py").read_text()
+    assert not re.search(r"^\s*(from|import)\s+repro_torch", mesh_state,
+                         re.MULTILINE)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

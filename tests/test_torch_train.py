@@ -161,15 +161,15 @@ def test_quantize_ef_matches_reference():
 
 
 def test_compressed_psum_and_late_sync_raise():
+    """The late sync and compression need a mesh (their multi-rank runs are
+    in test_torch_multidevice.py); without one they raise."""
     cfg = tconfigs.get("smollm-360m").smoke()
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        tcompress.compressed_psum(torch.zeros(3), "data", torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(ValueError, match="need the mesh"):
         ttrain.make_train_step(cfg, grad_sync="late")
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        ttrain.make_train_step(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        ttrain.state_specs(ttrain.abstract_state(cfg), None)
+    with pytest.raises(ValueError, match="need the mesh"):
+        ttrain.make_train_step(cfg, compress=True)
+    with pytest.raises(ValueError, match="unknown grad_sync"):
+        ttrain.make_train_step(cfg, grad_sync="early")
 
 
 # --------------------------------------------------------------------- data
