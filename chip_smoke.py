@@ -46,7 +46,7 @@ Phases (any failure raises and the script exits non-zero):
    row's largest value, at Granite-8B's prefill shape (B=4, S=2048, 32
    heads on 8 kv heads, d=128), SmolLM-360M's (15 on 5, d=64), a
    ``q_offset`` tail, a non-causal call and one rank's share of the TP = 2
-   prefill of phase 13 (16 heads on 4); timed with CUDA events beside the plain version, the
+   prefill of phase 13 (16 heads on 4) and Qwen2-VL-7B's (14 on 2); timed with CUDA events beside the plain version, the
    bound and ``scaled_dot_product_attention`` (a yardstick the port never
    calls), with the kernel's own tensor work (6 d FLOP per kept pair: P V
    runs on both halves of P) and its share of the bf16 peak.
@@ -70,7 +70,8 @@ Phases (any failure raises and the script exits non-zero):
    splits misses), at
    xLSTM-1.3B's prefill shape (B=4, S=2048, 4 heads, K=V=1024),
    Zamba2-1.2B's (32 heads, K=64, V=128, q and k broadcast over the heads
-   with stride 0), a ragged S=200 and K != V; the bf16 route timed with
+   with stride 0), each at one TP = 2 rank's heads (2 and 16), a ragged
+   S=200 and K != V; the bf16 route timed with
    CUDA events at both model shapes (at each slab width too) beside the
    plain version, the bound and the fp32 route's kernel.
 7. The recurrent LM slices at full width and depth (random bf16 weights
@@ -196,8 +197,25 @@ Phases (any failure raises and the script exits non-zero):
     state saved, ranks 2-3 lost, ``plan_mesh`` -> (1, 2), ``remesh`` over
     ranks 0-1, ``restore_latest(placements=)`` bit-equal leaf by leaf, one
     more step finite; the compressed step's state, whose int8 error
-    feedback rides in ``opt["err"]``, restored the same way; (e) host-clock times, per-rank peak memory and
-    collective bytes by op, all with the ranks sharing one card.
+    feedback rides in ``opt["err"]``, restored the same way; host-clock
+    times, per-rank peak memory and collective bytes by op, all with the
+    ranks sharing one card.  Then every other family (``MESH_FAMILIES``),
+    its unsharded references computed first in this process: at TP = 2 on
+    (1, 2), a 4x2048 bf16 prefill and the serve loop of (e) Zamba2-1.2B
+    at full depth (38 scan launches a rank on 16 heads, q and k at head
+    stride 0; fp32 at one layer against the unsharded model within
+    ``MESH_FP32_REL_TOL`` of the largest |logit|), (f) xLSTM-1.3B at 8
+    layers (7 launches a rank on 2 heads; one sLSTM block's loop timed on
+    the mesh and alone), (g) Qwen2-VL-7B at full depth with patch
+    embeddings (28 flash launches a rank on 14 q / 2 kv heads) and
+    Seamless-m4t-large-v2 at full depth, (h) Mixtral-8x7B at 4 layers (4
+    flash launches a rank on 16 / 4 heads): each without a plain call,
+    its logits at every 8th position no farther from the fp32 prefill than
+    1.25 times the unsharded bf16 prefill's; (i) one (2, 2)
+    ``grad_sync="late"`` step (4x2048, ``grad_accum=2``) of Zamba2 at 6
+    layers (60 scan launches and 12 backward calls a rank), Mixtral at 1
+    and Qwen2-VL at 4: losses finite, every gradient leaf finite and
+    nonzero.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -238,8 +256,10 @@ FLASH_CASES = {
     "smollm prefill": (4, 2048, 2048, 15, 5, 64, 0, True),
     "granite q_offset tail": (4, 128, 2048, 32, 8, 128, 1920, True),
     "granite non-causal": (1, 512, 512, 32, 8, 128, 0, False),
-    # one rank's heads in the TP = 2 prefill of phase 13
+    # one rank's heads in the TP = 2 prefills of phase 13 (Granite-8B's and
+    # Mixtral-8x7B's: 16 on 4; Qwen2-VL-7B's: 14 on 2)
     "granite TP=2 rank prefill": (4, 2048, 2048, 16, 4, 128, 0, True),
+    "qwen2-vl TP=2 rank prefill": (4, 2048, 2048, 14, 2, 128, 0, True),
 }
 FP32_TOL = 2e-5            # fp32 kernel vs attention_ref, max |diff|
 # hand-made horizontal launches (h, w, ic, oc, kh, kw, stride, pad) at
@@ -272,6 +292,9 @@ SCAN_CASES = {
     "zamba2 prefill": ZAMBA_SCAN,
     "ragged S=200": (4, 200, 4, 64, 96, False),
     "K != V": (2, 256, 2, 40, 24, False),
+    # one rank's heads in the TP = 2 prefills of phase 13
+    "xlstm TP=2 rank prefill": (4, 2048, 2, 1024, 1024, False),
+    "zamba2 TP=2 rank prefill": (4, 2048, 16, 64, 128, True),
 }
 SCAN_FP32_TOL = 2e-4       # row-relative, the JAX package's Pallas tolerance
 # the recurrent LMs' bf16 prefill logits with the kernel, against the fp32
@@ -1942,6 +1965,7 @@ def plain_scan(chunk: int | None = None, check: list | None = None):
     kernel = scan.ssm_scan
 
     def seam(q, k, v, la, chunk_=128):
+        q, k = scan.expand_heads(q, k, v)       # Zamba2's one-head q and k
         y = chunked_linear_scan(q, k, v, la, chunk=chunk or chunk_)[0]
         if check is not None:
             want = y if q.dtype == torch.float32 else scan.scan_fp32(
@@ -2286,6 +2310,9 @@ BW_CASES = {
     "zamba2 train": (2, 2048, 32, 64, 128, True),
     "ragged S=200": (4, 200, 4, 64, 96, False),
     "K != V": (2, 256, 2, 40, 24, False),
+    # one rank's heads in the TP = 2 prefills of phase 13
+    "xlstm TP=2 rank prefill": (4, 2048, 2, 1024, 1024, False),
+    "zamba2 TP=2 rank prefill": (4, 2048, 16, 64, 128, True),
 }
 # fp32 route's gradients against plain autograd through
 # chunked_linear_scan, relative to each gradient's largest value (row by
@@ -2810,18 +2837,24 @@ def _peak_gib(dev) -> float:
     return torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
 
-def _spy_flash():
-    """Record the q and k shapes of every flash call of this process."""
+def _spy_kernels() -> dict:
+    """Record the (q, k) shapes of every flash launch and the (q, v) shapes
+    and q's head stride of every scan launch of this process."""
     from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ssm_scan import ops as scan
 
-    seen = []
-    call = flash.flash_attention
+    seen = {"flash": [], "scan": []}
+    flash_call, scan_launch = flash.flash_attention, scan.launch
 
-    def spy(q, k, v, **kw):
-        seen.append((tuple(q.shape), tuple(k.shape)))
-        return call(q, k, v, **kw)
+    def spy_flash(q, k, v, **kw):
+        seen["flash"].append((tuple(q.shape), tuple(k.shape)))
+        return flash_call(q, k, v, **kw)
 
-    flash.flash_attention = spy
+    def spy_scan(q, k, v, log_a, vt, out_dtype=None):
+        seen["scan"].append((tuple(q.shape), tuple(v.shape), q.stride(2)))
+        return scan_launch(q, k, v, log_a, vt, out_dtype)
+
+    flash.flash_attention, scan.launch = spy_flash, spy_scan
     return seen
 
 
@@ -2858,7 +2891,7 @@ def tp_serve_rank(rank, world, ref_path) -> dict:
     res = {"backend": backend, "mesh": list(mesh.shape)}
     with torch.no_grad(), mesh_context(mesh):
         prefill(params, {"tokens": tokens[:, :128]})            # warm-up
-        seen = _spy_flash()
+        seen = _spy_kernels()["flash"]
         torch.cuda.reset_peak_memory_stats(dev)
         reset_all_counts()                    # ---- main path starts here
         with CommRecord() as comm:
@@ -3134,6 +3167,464 @@ def nccl_rank(rank, world) -> dict:
                                                            exp_err["g"]))}
 
 
+# 13e-13i: the other five families on the mesh.  13e-13h run TP = 2 on
+# the (1, 2) mesh, one family after another in the same two ranks, each at
+# full width (depth cut where the card's memory or the time limit forces
+# it, MESH_FAMILIES' fields); 13i takes one (2, 2) late-sync step of three
+# of them.  The unsharded references (bf16 with the kernels, fp32 plain)
+# are computed first in this process and read by rank 0 from files.
+MESH_FAMILIES = {
+    "zamba2-1.2b": {},                                     # 13e, 38 layers
+    "xlstm-1.3b": {"n_layers": 8},                         # 13f, 7 + 1
+    "qwen2-vl-7b": {"attn_impl": "flash"},                 # 13g, 28 layers
+    "seamless-m4t-large-v2": {},                           # 13g, 24 + 24
+    # 13h: 4 of 32 layers (the two ranks share the card; full depth is
+    # about 93 GB of bf16 weights); at 2048 positions the 4096-slot window
+    # masks nothing, so window 0 is the same function and takes flash
+    "mixtral-8x7b": {"n_layers": 4, "attn_impl": "flash", "window": 0},
+}
+MESH_FAMILY_BATCH = (4, 2048)          # prefill rows, positions
+MESH_FAMILY_PROMPT = (8, 8)            # serve loop: prompt, greedy steps
+MESH_LOGIT_STRIDE = 8                  # logits held at every 8th position
+# the flash and scan launches of one rank's prefill
+MESH_FAMILY_LAUNCHES = {"zamba2-1.2b": {"ssm_scan": 38},
+                        "xlstm-1.3b": {"ssm_scan": 7},
+                        "qwen2-vl-7b": {"flash_attention": 28},
+                        "seamless-m4t-large-v2": {},
+                        "mixtral-8x7b": {"flash_attention": 4}}
+# 13i: depths of the (2, 2) step.  Zamba2's 6 layers are the fewest that
+# keep its shared block (applied every 6th); Mixtral's one layer is what
+# four ranks' training state fits on one 80 GB card (about 10 GB a rank
+# a layer: bf16 weights, fp32 gradient buffers, moments, activations)
+MESH_TRAIN_FAMILIES = {"zamba2-1.2b": {"n_layers": 6},
+                       "mixtral-8x7b": {"n_layers": 1},
+                       "qwen2-vl-7b": {"n_layers": 4}}
+MESH_ZAMBA_FP32 = DEPTH_CHECKS["zamba2-1.2b"]     # 13e's fp32 check
+# 13e's fp32 TP = 2 prefill against the unsharded one, relative to the
+# largest |logit|: the row-parallel products split their 4,096-term fp32
+# sums in two, which reassociates them; at this model's residual stream
+# (|x| about 118 under random weights) that moves a block's output by
+# some 3e-4, and the shared block carries it to about 1.3e-4 on logits of
+# 5, past an absolute 1e-4 (``block_out_diff`` is logged beside it)
+MESH_FP32_REL_TOL = 1e-4
+
+
+def _card_memory() -> dict:
+    """GiB this process holds on the card (after freeing its cache) and
+    GiB free on the card, logged before a group of ranks starts."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    gib = 2 ** 30
+    rec = {"this_process_allocated_gib": torch.cuda.memory_allocated() / gib,
+           "this_process_reserved_gib": torch.cuda.memory_reserved() / gib,
+           "card_free_gib": free / gib, "card_total_gib": total / gib}
+    log("card memory before a rank group: " + json.dumps(rec))
+    return rec
+
+
+def _family_cfg(arch: str, fields: dict):
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get(arch), **fields)
+
+
+def _family_batch(cfg, dev, rows: int, seq: int, seed: int) -> dict:
+    """A prefill batch of ``rows`` x ``seq`` positions split as
+    ``api.input_specs`` splits a prefill (Seamless: frames and tokens by
+    ``ENC_FRACTION``; Qwen2-VL: patch embeddings and text), from a seeded
+    numpy generator."""
+    from repro_torch.models import api
+
+    rng = np.random.default_rng(seed)
+
+    def toks(n):
+        return torch.as_tensor(rng.integers(0, cfg.vocab, (rows, n)),
+                               device=dev)
+
+    def feats(n):
+        return torch.as_tensor(rng.standard_normal(
+            (rows, n, cfg.d_model), dtype=np.float32),
+            device=dev).to(torch.bfloat16)
+
+    if cfg.family == "audio":
+        se = int(seq * api.ENC_FRACTION["prefill"])
+        return {"frames": feats(se), "tokens": toks(seq - se)}
+    if cfg.family == "vlm":
+        npat = min(cfg.n_patches, seq // 2)
+        return {"patch_embeds": feats(npat), "tokens": toks(seq - npat)}
+    return {"tokens": toks(seq)}
+
+
+def _ref_path(arch: str, out_dir: str) -> str:
+    return os.path.join(out_dir, f"mesh_ref_{arch}.pt")
+
+
+@torch.inference_mode()
+def mesh_family_refs(dev) -> dict:
+    """The unsharded prefill of each MESH_FAMILIES model on this process's
+    card, for 13e-13h: bf16 through the kernels and fp32 plain (plain scan,
+    ``xla`` attention, TF32 off) on the same weights and batch, their
+    logits at every MESH_LOGIT_STRIDE-th position saved for rank 0."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    out = {}
+    rows, seq = MESH_FAMILY_BATCH
+    for arch, fields in MESH_FAMILIES.items():
+        cfg = _family_cfg(arch, fields)
+        params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), dev)
+        batch = _family_batch(cfg, dev, rows, seq, SEED)
+        prefill = serve.make_prefill_step(cfg)
+        prefill(params, _family_batch(cfg, dev, 1, 256, SEED + 1))  # warm-up
+        reset_all_counts()
+        logits, secs = timed(lambda: prefill(params, batch))
+        launches, plain = all_counts()
+        bf16 = logits[:, ::MESH_LOGIT_STRIDE].float().cpu()
+        del logits
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="xla")
+        p32 = _to(params, torch.float32)
+        del params
+        torch.cuda.empty_cache()
+        with plain_scan():
+            ref = serve.make_prefill_step(cfg32)(p32, batch)
+        fp32 = ref[:, ::MESH_LOGIT_STRIDE].cpu()
+        del ref, p32, batch
+        torch.cuda.empty_cache()
+        torch.save({"bf16": bf16, "fp32": fp32}, _ref_path(arch, OUT))
+        out[arch] = {"unsharded_prefill_ms": secs * 1e3,
+                     "unsharded_launches": {k: v for k, v in launches.items()
+                                            if v},
+                     "unsharded_plain_calls": sum(plain.values())}
+        log(f"{arch} {fields}: unsharded references saved (bf16 prefill "
+            f"{rows}x{seq} {secs * 1e3:.1f} ms, launches "
+            f"{out[arch]['unsharded_launches']})")
+    return out
+
+
+def family_tp_rank(rank, world, out_dir) -> dict:
+    """13e-13h: each MESH_FAMILIES model at TP = 2 on a (1, 2) mesh: the
+    4x2048 prefill (kernel launches and shapes a rank, collectives by op,
+    peak memory, the bf16 logits' distance to the fp32 prefill beside the
+    unsharded bf16 prefill's), the serve loop on a ``cache_specs``-placed
+    cache; for Zamba2 also the fp32 check at one layer against the
+    unsharded model with the plain scan."""
+    import dataclasses
+
+    from repro_torch.launch import serve, shard
+    from repro_torch.launch.hlo_analysis import (CommRecord,
+                                                 collective_stats_from_comm)
+    from repro_torch.launch.mesh import make_mesh, mesh_context
+    from repro_torch.launch.train import place_state
+    from repro_torch.models import api
+
+    dev = _rank_dev()
+    mesh = make_mesh(*MESH_SERVE, device_type=MESH_DEVICE)
+    seen = _spy_kernels()
+    rows, seq = MESH_FAMILY_BATCH
+    plen, gen = MESH_FAMILY_PROMPT
+    out = {}
+    for arch, fields in MESH_FAMILIES.items():
+        t_arch = time.perf_counter()
+        cfg = _family_cfg(arch, fields)
+        full = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), dev)
+        params = place_state(full, shard.param_specs(full, mesh), mesh)
+        del full
+        torch.cuda.empty_cache()
+        batch = _family_batch(cfg, dev, rows, seq, SEED)
+        prefill = serve.make_prefill_step(cfg)
+        res = {}
+        with torch.no_grad(), mesh_context(mesh):
+            prefill(params, _family_batch(cfg, dev, 1, 256, SEED + 1))
+            for v in seen.values():
+                v.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_all_counts()                # ---- main path starts here
+            with CommRecord() as comm:
+                logits, secs = timed(lambda: prefill(params, batch))
+            launches, plain = all_counts()    # ---- main path ends here
+            res.update(prefill_ms=secs * 1e3, prefill_peak_gib=_peak_gib(dev),
+                       launches={k: v for k, v in launches.items() if v},
+                       plain=sum(plain.values()),
+                       flash_shapes=sorted(set(seen["flash"])),
+                       scan_shapes=sorted(set(seen["scan"])),
+                       collectives=collective_stats_from_comm(comm))
+            got = logits[:, ::MESH_LOGIT_STRIDE].full_tensor().float()
+            del logits
+            res["logits_shape"] = list(got.shape)
+            res["logits_finite"] = bool(torch.isfinite(got).all())
+            if rank == 0:
+                ref = torch.load(_ref_path(arch, out_dir))
+                fp32, bf16 = ref["fp32"].to(dev), ref["bf16"].to(dev)
+                res["err_vs_fp32"] = {
+                    "sharded": float((got - fp32).abs().max()),
+                    "unsharded": float((bf16 - fp32).abs().max())}
+                res["argmax_agreement"] = float(
+                    (got.argmax(-1) == bf16.argmax(-1)).float().mean())
+                res["logits_max_abs"] = float(fp32.abs().max())
+                del fp32, bf16, ref
+            del got
+            torch.cuda.empty_cache()
+            prompt = np.random.default_rng(SEED + 2).integers(
+                0, cfg.vocab, (rows, plen))
+            serve.serve_loop(cfg, params, prompt[:, :4], 2, dev, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_all_counts()
+            loop = serve.serve_loop(cfg, params, prompt, gen, dev, mesh=mesh)
+            res.update(tokens=loop["tokens"].tolist(),
+                       serve_plain=sum(all_counts()[1].values()),
+                       prefill_by_decode_tokens_per_s=rows * (plen - 1)
+                       / loop["prefill_s"],
+                       decode_tokens_per_s=rows * gen / loop["decode_s"],
+                       decode_peak_gib=_peak_gib(dev))
+            if cfg.family == "ssm":
+                res["slstm_ms"] = _slstm_times(cfg, params, dev)
+        del params
+        torch.cuda.empty_cache()
+        if arch == "zamba2-1.2b":
+            res["fp32_check"] = _zamba_fp32_tp_check(rank, mesh, dev)
+        res["seconds"] = time.perf_counter() - t_arch
+        out[arch] = res
+    return out
+
+
+def _slstm_times(cfg, params, dev) -> dict:
+    """Host ms of one sLSTM block's loop over the 4x2048 prefill (the
+    first block's weights, a seeded input): on the mesh (each rank's
+    rows, the weights gathered once) and on the rank's card alone with
+    the same weights whole."""
+    from repro_torch.nn import layers as nnl
+    from repro_torch.nn import recurrent as rec
+
+    sp = {k: v[0] for k, v in params["slstm"].items()}
+    rows, seq = MESH_FAMILY_BATCH
+    x = torch.randn((rows, seq, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev).to(sp["w_gates"].dtype)
+    xd = nnl.replicate_like(x, sp["w_gates"])
+    whole = {k: v.full_tensor() for k, v in sp.items()}
+    rec.slstm_scan(xd[:, :16], sp)
+    (_, _), mesh_s = timed(lambda: rec.slstm_scan(xd, sp))
+    (_, _), alone_s = timed(lambda: rec.slstm_scan(x, whole))
+    return {"mesh": mesh_s * 1e3, "one_card": alone_s * 1e3}
+
+
+def _zamba_fp32_tp_check(rank, mesh, dev) -> dict:
+    """Zamba2 at full width and one layer with its shared block, fp32, on
+    4x512 tokens: the TP = 2 prefill (the fp32 route of the scan kernel on
+    each rank's 16 heads) against the unsharded prefill through the same
+    kernel, on rank 0 (``MESH_FP32_REL_TOL``); beside it the residual
+    stream after the Mamba block sharded against unsharded, the unsharded
+    kernel against the plain scan and the plain path's own spread (chunk
+    64 against 128), the rounding this model amplifies."""
+    from repro_torch.launch import serve, shard
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.launch.train import place_state
+    from repro_torch.models import api
+    from repro_torch.nn import layers as nnl
+    from repro_torch.nn import zamba
+
+    cfg = _family_cfg("zamba2-1.2b", dict(MESH_ZAMBA_FP32, dtype="float32"))
+    full = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 1), dev)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(
+        SEED + 3).integers(0, cfg.vocab, (MESH_FAMILY_BATCH[0], 512)),
+        device=dev)}
+    step = serve.make_prefill_step(cfg)
+
+    def block_out(p):          # the residual stream after the Mamba block
+        x = nnl.embed(batch["tokens"], p["embed"])
+        return zamba._mamba_block(cfg, x, {k: v[0] for k, v in
+                                           p["mamba"].items()}, 128)
+
+    with torch.no_grad():
+        params = place_state(full, shard.param_specs(full, mesh), mesh)
+        with mesh_context(mesh):
+            reset_all_counts()
+            got = step(params, batch).full_tensor()
+            launches = all_counts()[0]["ssm_scan"]
+            got_block = block_out(params).full_tensor()
+        res = {"launches": launches}
+        if rank == 0:
+            want_block = block_out(full)
+            res["block_out_diff"] = float((got_block - want_block).abs().max())
+            res["block_out_max_abs"] = float(want_block.abs().max())
+            want = step(full, batch)
+            with plain_scan():
+                plain = step(full, batch)
+            with plain_scan(chunk=64):
+                spread = float((step(full, batch) - plain).abs().max())
+            res.update(
+                max_abs_diff=float((got - want).abs().max()),
+                vs_unsharded_plain=float((got - plain).abs().max()),
+                unsharded_kernel_vs_plain=float((want - plain).abs().max()),
+                plain_chunk64_spread=spread,
+                logits_max_abs=float(want.abs().max()))
+    del full, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def family_train_rank(rank, world) -> dict:
+    """13i: one (2, 2) ``grad_sync="late"`` step (``grad_accum=2``, a 4x2048
+    batch from ``SyntheticLM``) of each MESH_TRAIN_FAMILIES model at full
+    width: the loss, every gradient leaf finite and nonzero (checked on
+    the mesh), the scan's launches and backward calls on this rank, the
+    step's seconds, peak memory and collectives."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.hlo_analysis import (CommRecord,
+                                                 collective_stats_from_comm)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import init_state, make_train_step
+
+    dev = _rank_dev()
+    mesh = make_mesh(*MESH_TRAIN, device_type=MESH_DEVICE)
+    rows, seq, ga = MESH_TRAIN_BATCH
+    out = {}
+    for arch, fields in MESH_TRAIN_FAMILIES.items():
+        cfg = _family_cfg(arch, fields)
+        state = init_state(cfg, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev, mesh=mesh)
+        torch.cuda.empty_cache()
+        batch = SyntheticLM(vocab=cfg.vocab, batch=rows, seq=seq,
+                            family=cfg.family, d_model=cfg.d_model,
+                            n_patches=cfg.n_patches, device=dev).next()
+        step = make_train_step(cfg, grad_accum=ga, grad_sync="late",
+                               mesh=mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        with CommRecord() as comm:
+            (new, m), secs = timed(lambda: step(state, batch))
+        launches, plain = all_counts()
+        grads = leaves(m["grads"])
+        finite = [bool(torch.isfinite(g.to_local()).all()) for g in grads]
+        # each leaf's largest |g| over the mesh
+        peak = [float(g.float().abs().max().full_tensor()) for g in grads]
+        out[arch] = {
+            "loss": float(m["loss"]), "step_s": secs,
+            "peak_gib": _peak_gib(dev), "plain": sum(plain.values()),
+            "scan_launches": launches["ssm_scan"],
+            "scan_backward_calls": launches["ssm_scan_backward"],
+            "grad_leaves": len(grads), "grads_finite": all(finite),
+            "zero_grad_leaves": sum(1 for p in peak if not p > 0),
+            "collectives": collective_stats_from_comm(comm)}
+        del state, new, m, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_mesh_checks(refs, served, trained, card: str) -> dict:
+    """The checks of 13e-13i on the ranks' results; logs each case."""
+    res = {"refs": refs, "tp": {}, "train": trained}
+    for arch, fields in MESH_FAMILIES.items():
+        cfg = _family_cfg(arch, fields)
+        want = dict(MESH_FAMILY_LAUNCHES[arch])
+        heads = cfg.n_heads // MESH_SERVE[0][1]
+        for r, ranks in enumerate(served):
+            s = ranks[arch]
+            if s["launches"] != want or s["plain"] or s["serve_plain"]:
+                raise AssertionError(f"{arch} TP=2 rank {r}: launches "
+                                     f"{s['launches']} (want {want}), plain "
+                                     f"{s['plain']} + {s['serve_plain']}")
+            if "ssm_scan" in want and {(q[2], v[2]) for q, v, _ in
+                                       s["scan_shapes"]} != {(heads, heads)}:
+                raise AssertionError(f"{arch} rank {r}: scan on heads "
+                                     f"{s['scan_shapes']}, want {heads}")
+            if arch == "zamba2-1.2b" and {st for _, _, st in
+                                          s["scan_shapes"]} != {0}:
+                raise AssertionError(f"{arch} rank {r}: q copied over the "
+                                     f"heads {s['scan_shapes']}")
+            if "flash_attention" in want and {
+                    (q[2], k[2]) for q, k in s["flash_shapes"]} != {
+                    (heads, cfg.n_kv_heads // MESH_SERVE[0][1])}:
+                raise AssertionError(f"{arch} rank {r}: flash on "
+                                     f"{s['flash_shapes']}")
+            tok = np.asarray(s["tokens"])
+            if not (s["logits_finite"] and tok.shape == (
+                    MESH_FAMILY_BATCH[0], MESH_FAMILY_PROMPT[1])
+                    and ((tok >= 0) & (tok < cfg.vocab)).all()):
+                raise AssertionError(f"{arch} rank {r}: logits finite "
+                                     f"{s['logits_finite']}, tokens "
+                                     f"{tok.shape}")
+        s = served[0][arch]
+        e = s["err_vs_fp32"]
+        if not e["sharded"] <= LOGITS_FLASH_VS_XLA * e["unsharded"]:
+            raise AssertionError(f"{arch} TP=2 logits vs fp32: "
+                                 f"{e['sharded']} > {LOGITS_FLASH_VS_XLA} x "
+                                 f"{e['unsharded']} (unsharded)")
+        if arch == "zamba2-1.2b":
+            f = s["fp32_check"]
+            if not (f["max_abs_diff"] <= MESH_FP32_REL_TOL
+                    * f["logits_max_abs"] and f["launches"] == 1):
+                raise AssertionError(f"{arch} fp32 TP=2 at one layer: {f}")
+        res["tp"][arch] = {"fields": fields, "ranks": [
+            {k: v for k, v in ranks[arch].items() if k != "tokens"}
+            for ranks in served]}
+        log(f"phase 13{'efggh'[list(MESH_FAMILIES).index(arch)]}, {arch} "
+            f"{fields} TP=2 ({SHARED}, {card}): prefill "
+            f"{MESH_FAMILY_BATCH[0]}x{MESH_FAMILY_BATCH[1]} "
+            f"{[round(x[arch]['prefill_ms'], 1) for x in served]} ms a rank "
+            f"(unsharded {refs[arch]['unsharded_prefill_ms']:.1f}); "
+            f"launches a rank {s['launches']}, flash heads "
+            f"{sorted({(q[2], k[2]) for q, k in s['flash_shapes']})}, scan "
+            f"heads {sorted({(q[2], st) for q, _, st in s['scan_shapes']})}"
+            f" (heads, q head stride); logits vs fp32 sharded "
+            f"{e['sharded']}, unsharded {e['unsharded']} (largest |logit| "
+            f"{s['logits_max_abs']}), argmax agreement "
+            f"{s['argmax_agreement']}; decode "
+            f"{s['decode_tokens_per_s']:.2f} tokens/s; collectives "
+            f"{s['collectives']['counts']} bytes "
+            f"{s['collectives']['bytes_by_op']}; peak "
+            f"{s['prefill_peak_gib']:.2f} GiB a rank"
+            + (f"; fp32 one layer: TP=2 vs unsharded (both on the kernel) "
+               f"max |diff| {s['fp32_check']['max_abs_diff']}, vs the "
+               f"unsharded plain scan {s['fp32_check']['vs_unsharded_plain']}"
+               f" (the Mamba block's output "
+               f"{s['fp32_check']['block_out_diff']} at |x| "
+               f"{s['fp32_check']['block_out_max_abs']}; unsharded "
+               f"kernel vs plain "
+               f"{s['fp32_check']['unsharded_kernel_vs_plain']}, the plain "
+               f"path's chunk-64 spread "
+               f"{s['fp32_check']['plain_chunk64_spread']})"
+               if arch == "zamba2-1.2b" else "")
+            + (f"; one sLSTM block's loop (4x2048) {s['slstm_ms']} ms"
+               if "slstm_ms" in s else ""))
+    for arch, fields in MESH_TRAIN_FAMILIES.items():
+        for r, ranks in enumerate(trained):
+            t = ranks[arch]
+            if not (np.isfinite(t["loss"]) and t["grads_finite"]
+                    and t["zero_grad_leaves"] == 0 and t["plain"] == 0):
+                raise AssertionError(f"13i {arch} rank {r}: {t}")
+            if arch == "zamba2-1.2b":
+                n = fields["n_layers"] * MESH_TRAIN_BATCH[2]
+                if (t["scan_launches"], t["scan_backward_calls"]) != (
+                        5 * n, n):
+                    raise AssertionError(f"13i {arch} rank {r}: scan "
+                                         f"{t['scan_launches']} launches, "
+                                         f"{t['scan_backward_calls']} "
+                                         f"backward calls, want {5 * n}, {n}")
+        t = trained[0][arch]
+        log(f"phase 13i, {arch} {fields} on (2, 2), late sync, "
+            f"grad_accum={MESH_TRAIN_BATCH[2]} ({SHARED}, {card}): loss "
+            f"{[round(x[arch]['loss'], 4) for x in trained]}, step "
+            f"{t['step_s']:.2f} s, {t['grad_leaves']} gradient leaves "
+            f"finite and nonzero; scan launches / backward calls a rank "
+            f"{[(x[arch]['scan_launches'], x[arch]['scan_backward_calls'])
+                for x in trained]}; peak {t['peak_gib']:.2f} GiB a rank; "
+            f"collectives "
+            f"{t['collectives']['counts']}")
+    return res
+
+
 def mesh_phase(card: str) -> dict:
     """Phase 13: the multi-device slice on the card."""
     from repro_torch.launch.mesh import rank_backend, run_ranks
@@ -3245,6 +3736,25 @@ def mesh_phase(card: str) -> dict:
         raise AssertionError(f"NCCL (1, 1): {nccl}")
     log(f"phase 13c: NCCL (1, 1) late-sync step bit-equal to the unsharded "
         f"one, compressed_psum bit-equal to quantize_ef")
+
+    t0 = time.perf_counter()
+    refs = mesh_family_refs(torch.device("cuda"))
+    t1 = time.perf_counter()
+    res["card_memory_before_families"] = _card_memory()
+    served = run_ranks(family_tp_rank, 2, (OUT,), **kw)
+    t2 = time.perf_counter()
+    # four ranks' training states share the card: the allocator grows
+    # segments in place rather than keeping freed blocks of each size
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    res["card_memory_before_family_train"] = _card_memory()
+    trained = run_ranks(family_train_rank, 4, (), **kw)
+    for arch in MESH_FAMILIES:
+        os.remove(_ref_path(arch, OUT))
+    res["families"] = family_mesh_checks(refs, served, trained, card)
+    res["families"]["seconds"] = {"references": t1 - t0, "tp": t2 - t1,
+                                  "train": time.perf_counter() - t2}
+    log(f"phase 13e-13i took {time.perf_counter() - t0:.1f} s "
+        f"({json.dumps(res['families']['seconds'])})")
     res["seconds"] = time.perf_counter() - t_phase
     log(f"mesh phase took {res['seconds']:.1f} s")
     return res
@@ -3376,7 +3886,14 @@ def main() -> int:
             r["launches"]["flash_attention"]
             for r in mesh["tp_serve"]["ranks"]],
         "tp_prefill_heads_per_rank": mesh["tp_serve"]["ranks"][0][
-            "flash_shapes"]})
+            "flash_shapes"],
+        "family_tp_prefill_launches_per_rank": {
+            arch: [r["launches"].get("flash_attention", 0) for r in
+                   mesh["families"]["tp"][arch]["ranks"]]
+            for arch in ("qwen2-vl-7b", "mixtral-8x7b")},
+        "family_tp_shapes_per_rank": {
+            arch: mesh["families"]["tp"][arch]["ranks"][0]["flash_shapes"]
+            for arch in ("qwen2-vl-7b", "mixtral-8x7b")}})
     xl = scan_t["xlstm-1.3b"]
     n_scan = recurrent["xlstm-1.3b"]["launches"]["ssm_scan"]
     kernels.append({
@@ -3394,6 +3911,13 @@ def main() -> int:
         "bound_by": ("bytes" if xl["bound_bytes_ms"] >= xl["bound_ops_ms"]
                      else "operations"),
         "library_ms": None,
+        "family_tp_prefill_launches_per_rank": {
+            arch: [r["launches"].get("ssm_scan", 0) for r in
+                   mesh["families"]["tp"][arch]["ranks"]]
+            for arch in ("zamba2-1.2b", "xlstm-1.3b")},
+        "family_tp_shapes_per_rank": {
+            arch: mesh["families"]["tp"][arch]["ranks"][0]["scan_shapes"]
+            for arch in ("zamba2-1.2b", "xlstm-1.3b")},
         "paths": {arch: {"launches": recurrent[arch]["launches"]["ssm_scan"],
                          "ms": scan_t[arch]["ms"],
                          "plain_ms": scan_t[arch]["plain_ms"],
@@ -3412,6 +3936,11 @@ def main() -> int:
                        "backward_calls": training[key][
                            "launches_per_step"]["ssm_scan_backward"]}
                 for arch, key in ((ZAMBA, "zamba2"), (XLSTM, "xlstm"))},
+            "family_train_per_rank": {
+                arch: [(r[arch]["scan_launches"],
+                        r[arch]["scan_backward_calls"])
+                       for r in mesh["families"]["train"]]
+                for arch in ("zamba2-1.2b",)},
             "max_rel_err": scan_bw["errors"],
             **{arch: scan_bw[arch] for arch in ("xlstm-1.3b",
                                                 "zamba2-1.2b")}}})

@@ -45,9 +45,12 @@ import ctypes
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import row_rel_err  # noqa: F401
+from repro_torch.nn.layers import ContiguousGrad, laid_out
 from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
 
 # the kernels of each dtype's route, and the column slab widths of S each
@@ -199,8 +202,19 @@ def slab_width(b: int, h: int, dk: int, dv: int, n_sm: int,
 def ssm_scan(q, k, v, log_a, *, chunk: int = 128):
     """q,k (B,S,H,K); v (B,S,H,V); log_a (B,S,H) fp32.  Returns y (B,S,H,V)
     in v's dtype.  ``chunk`` is the plain version's chunk length (S must be
-    a multiple of min(chunk, S)); the kernels' chunks are their own."""
+    a multiple of min(chunk, S)); the kernels' chunks are their own.
+
+    q and k may both carry one head (B,S,1,K) shared by all of v's H
+    heads: they are expanded over the heads with stride 0, never copied.
+    DTensors run through ``_scan_per_head`` on each rank's local heads;
+    ``meta`` tensors (the dry run) take a shape-only route that counts
+    nothing."""
+    if isinstance(v, DTensor):
+        return _scan_per_head(q, k, v, log_a, chunk)
+    q, k = expand_heads(q, k, v)
     _check(q, k, v, log_a, chunk)
+    if q.device.type == "meta":
+        return ScanFunction.apply(q, k, v, log_a, meta_scan)
     if q.device.type == "cpu":
         PLAIN_CALLS["ssm_scan"] += 1
         return chunked_linear_scan(q, k, v, log_a, chunk=chunk)[0]
@@ -209,6 +223,63 @@ def ssm_scan(q, k, v, log_a, *, chunk: int = 128):
     if q.dtype not in ROUTES:
         raise ValueError(f"ssm_scan takes {list(ROUTES)}, not {q.dtype}")
     return ScanFunction.apply(q, k, v, log_a, kernel_scan)
+
+
+def _one_head(q, k, v) -> bool:
+    """Whether q and k both carry one head (B,S,1,K) for v's many."""
+    return (q.dim() == k.dim() == v.dim() == 4 and q.shape[2] == k.shape[2]
+            == 1 and v.shape[2] > 1)
+
+
+def expand_heads(q, k, v):
+    """q and k expanded over v's heads with stride 0 where both carry one
+    head (B,S,1,K); else as they are."""
+    if _one_head(q, k, v):
+        return tuple(t.expand(-1, -1, v.shape[2], -1) for t in (q, k))
+    return q, k
+
+
+def meta_scan(q, k, v, log_a, out_dtype=None):
+    """The scan's output on the ``meta`` device: its shape and dtype only
+    (the dry run's route; ``ScanFunction`` gives it a backward of meta
+    shapes too)."""
+    return torch.empty(v.shape, dtype=out_dtype or v.dtype, device="meta")
+
+
+def _scan_placements(v):
+    """The layout the scan runs in on each rank: on each mesh dim, v's
+    batch or head shard where it has one, else replicated (a sequence or
+    feature shard is gathered: each rank's scan needs the whole of both)."""
+    return tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                 else Replicate() for p in v.placements)
+
+
+def _scan_per_head(q, k, v, log_a, chunk: int):
+    """``ssm_scan`` on each rank's local rows and heads through
+    ``local_map``: the kernel (inside ``ScanFunction``, so its backward
+    runs per rank too) on the card, the plain version on the CPU.  The
+    output takes the layout ``_scan_placements`` picks.  One-head q and k
+    (B,S,1,K) stay whole over the head shards and are expanded to the
+    rank's local heads inside, with stride 0; their gradients leave as
+    partial sums over the mesh dims that shard the heads."""
+    pl = _scan_placements(v)
+    qk, qk_grad = pl, pl
+    if _one_head(q, k, v):
+        # a shared head stays whole where v's heads are sharded; its
+        # gradient there is a sum of the ranks' local heads'
+        qk = tuple(Replicate() if p == Shard(2) else p for p in pl)
+        qk_grad = tuple(Partial() if p == Shard(2) else p for p in pl)
+    want = (qk, qk, pl, pl)
+    args = [laid_out(t, v, w) for t, w in zip((q, k, v, log_a), want)]
+
+    def local(a, b, c, d):
+        if torch.is_grad_enabled():
+            a, b, c = (ContiguousGrad.apply(t) for t in (a, b, c))
+        return ssm_scan(a, b, c, d, chunk=chunk)
+
+    return local_map(local, out_placements=list(pl), in_placements=want,
+                     in_grad_placements=(qk_grad, qk_grad, pl, pl),
+                     device_mesh=v.device_mesh)(*args)
 
 
 def kernel_scan(q, k, v, log_a, out_dtype=None):

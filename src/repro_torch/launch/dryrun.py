@@ -18,9 +18,9 @@ so no layer secant is needed) and the collectives the step issued
 (``hlo_analysis.collective_stats_from_comm``: ring-traffic bytes by op).
 XLA's ``temp_size_in_bytes``, ``generated_code_size_in_bytes`` and its
 cost analysis have no counterpart without a compiler and are absent.
-Families the port does not run under a mesh yet (see ROADMAP) give
-``"status": "error"`` records with the reason, as the reference's ``main``
-writes its failures.
+Every family runs (the scan's ``meta`` route gives the recurrent ones
+their shapes); a cell that fails gives a ``"status": "error"`` record
+with the reason, as the reference's ``main`` writes its failures.
 
 Records land in ``dryrun_out/<arch>__<shape>__<mesh>.json`` at the repo
 root (``--out`` elsewhere).

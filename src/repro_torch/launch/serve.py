@@ -28,6 +28,7 @@ from repro_torch.core.tree import tree_map
 from repro_torch.launch import shard
 from repro_torch.models import api
 from repro_torch.nn import encdec
+from repro_torch.nn.layers import gather_dim
 
 
 def make_prefill_step(cfg: ArchConfig):
@@ -50,7 +51,10 @@ def make_prefill_step(cfg: ArchConfig):
 def make_serve_step(cfg: ArchConfig):
     def serve_step(params, cache, tokens, pos):
         logits, cache = api.decode_step(cfg, params, cache, tokens, pos)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        # vocab-sharded logits are gathered first: DTensor's argmax over a
+        # sharded dim fails for a batch of one on a two-axis mesh
+        next_tok = torch.argmax(gather_dim(logits, -1), dim=-1).to(
+            torch.int32)
         if isinstance(next_tok, DTensor):     # (B,) ids: every rank's
             next_tok = next_tok.full_tensor()
         return next_tok, cache

@@ -18,7 +18,7 @@ import torch.distributed._functional_collectives as fc
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.nn.layers import gather_dim
+from repro_torch.nn.layers import ContiguousGrad, gather_dim, grad_as_forward
 
 NEG = -1e30
 
@@ -94,21 +94,6 @@ def _head_matched(q, k):
                                                            want)
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose backward hands on a contiguous gradient: the
-    local gradients of q, k and v leave ``local_map`` into the DTensor
-    reshape of the heads, whose backward is a ``view`` of the local
-    shard."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
-
-
 def _per_head(fn, q, k, v, **kw):
     """``fn(q, k, v, **kw)`` on each rank's local heads and rows; the output
     takes q's placements."""
@@ -118,7 +103,7 @@ def _per_head(fn, q, k, v, **kw):
 
     def local(a, b, c):
         if torch.is_grad_enabled():
-            a, b, c = (_ContiguousGrad.apply(t) for t in (a, b, c))
+            a, b, c = (ContiguousGrad.apply(t) for t in (a, b, c))
         return fn(a, b, c, **kw)
 
     return local_map(local,
@@ -164,7 +149,7 @@ def sdpa_chunked(q, k, v, *, causal=True, window=0, q_offset=0,
 
 def attn_out(o, p):
     b, s, h, d = o.shape
-    return o.reshape(b, s, h * d) @ p["wo"]
+    return grad_as_forward(o.reshape(b, s, h * d)) @ p["wo"]
 
 
 # ----------------------------------------------------------------- KV cache

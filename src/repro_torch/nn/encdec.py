@@ -69,8 +69,13 @@ def _layer(stack: dict, i: int) -> dict:
     return {k: v[i] for k, v in stack.items()}
 
 
-def _positions(b: int, s: int, device):
-    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+def _positions(x):
+    """Positions 0..S-1 of each row of ``x`` (B,S,D), replicated on its
+    mesh where ``x`` is a DTensor."""
+    b, s = x.shape[:2]
+    return nnl.replicate_like(torch.arange(s, dtype=torch.int32,
+                                           device=x.device)[None].expand(b, s),
+                              x)
 
 
 def _self_block(cfg, x, lp, pos, causal):
@@ -79,24 +84,31 @@ def _self_block(cfg, x, lp, pos, causal):
     q = nnl.apply_rope(q, pos, cfg.rope_theta)
     k = nnl.apply_rope(k, pos, cfg.rope_theta)
     o = attn.sdpa(q, k, v, causal=causal)
-    return x + attn.attn_out(o, lp)
+    return x + nnl.residual(attn.attn_out(o, lp))
 
 
-def _cross(cfg, x, lp, enc_kv):
+def _cross(cfg, x, lp, enc_kv, decode: bool = False):
+    """Cross-attention to the encoder's K/V.  A decode step attends through
+    ``decode_attend`` over every frame (the same arithmetic as a
+    non-causal ``sdpa`` of one query), which also takes a cross cache whose
+    frames are sharded (``shard.cache_specs``, heads that do not
+    divide)."""
     h = nnl.rms_norm(x, lp["lnx"])
-    b, s, _ = h.shape
-    q = (h @ lp["xwq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = attn._split_heads(h @ lp["xwq"], cfg.n_heads, cfg.head_dim)
     k, v = enc_kv
-    o = attn.sdpa(q, k, v, causal=False)
+    if decode:
+        q = nnl.constrain(q, "dp", None, "tp", None)
+        o = attn.decode_attend(q, {"k": k, "v": v}, k.shape[1] - 1)
+    else:
+        o = attn.sdpa(q, k, v, causal=False)
     b, s2, hh, dd = o.shape
-    return x + o.reshape(b, s2, hh * dd) @ lp["xwo"]
+    return x + nnl.residual(o.reshape(b, s2, hh * dd) @ lp["xwo"])
 
 
 def _cross_kv(cfg, enc_out, lp):
     """The cross-attention keys and values of one decoder layer."""
-    be, se, _ = enc_out.shape
-    k = (enc_out @ lp["xwk"]).reshape(be, se, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ lp["xwv"]).reshape(be, se, cfg.n_kv_heads, cfg.head_dim)
+    k = attn._split_heads(enc_out @ lp["xwk"], cfg.n_kv_heads, cfg.head_dim)
+    v = attn._split_heads(enc_out @ lp["xwv"], cfg.n_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -106,10 +118,10 @@ def _mlp(cfg, x, lp):
 
 
 def encode(cfg: ArchConfig, params, frames):
-    """frames (B, S_enc, D) -> encoder output (B, S_enc, D)."""
-    x = frames.to(_dtype(cfg))
-    b, s, _ = x.shape
-    pos = _positions(b, s, x.device)
+    """frames (B, S_enc, D) -> encoder output (B, S_enc, D).  Plain frames
+    meet DTensor params replicated on their mesh."""
+    x = nnl.replicate_like(frames, params["ln_enc"]).to(_dtype(cfg))
+    pos = _positions(x)
 
     def body(x, lp):
         x = _self_block(cfg, x, lp, pos, causal=False)
@@ -122,15 +134,16 @@ def encode(cfg: ArchConfig, params, frames):
 
 
 def _unembed(params, x):
-    return x @ params["embed"].T.to(x.dtype)
+    """Tied unembedding; a vocab-sharded table gives vocab-sharded
+    logits."""
+    return nnl.constrain(x @ params["embed"].T.to(x.dtype), "dp", None, "tp")
 
 
 def decode_train(cfg: ArchConfig, params, enc_out, tokens):
     """Teacher-forced decoder over ``tokens`` (B, S_dec) cross-attending to
     ``enc_out``.  Returns logits (B, S_dec, V)."""
-    x = params["embed"][tokens].to(_dtype(cfg))
-    b, s, _ = x.shape
-    pos = _positions(b, s, x.device)
+    x = nnl.embed(tokens, params["embed"]).to(_dtype(cfg))
+    pos = _positions(x)
 
     def body(x, lp):
         x = _self_block(cfg, x, lp, pos, causal=True)
@@ -181,20 +194,22 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     caches are updated in place (``attention.cache_update``) and the cache
     itself is returned; the cross K/V are read, never written."""
     pos = int(pos)
-    x = params["embed"][tokens][:, None, :].to(_dtype(cfg))
-    b = x.shape[0]
-    p = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    x = nnl.embed(tokens, params["embed"])[:, None, :].to(_dtype(cfg))
+    p = _positions(x) + pos
     for i in range(cfg.n_layers):
         lp = _layer(params["dec"], i)
         h = nnl.rms_norm(x, lp["ln1"])
         q, k, v = attn.qkv(h, lp, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-        q = nnl.apply_rope(q, p, cfg.rope_theta)
-        k = nnl.apply_rope(k, p, cfg.rope_theta)
+        # q, k and v laid out as the KV cache (``shard.cache_specs``)
+        q, k, v = (nnl.constrain(t, "dp", None, "tp", None) for t in (
+            nnl.apply_rope(q, p, cfg.rope_theta),
+            nnl.apply_rope(k, p, cfg.rope_theta), v))
         lc = attn.cache_update({"k": cache["k"][i], "v": cache["v"][i]},
                                k, v, pos)
         o = attn.decode_attend(q, lc, pos)
-        x = x + attn.attn_out(o, lp)
-        x = _cross(cfg, x, lp, (cache["xk"][i], cache["xv"][i]))
+        x = x + nnl.residual(attn.attn_out(o, lp))
+        x = _cross(cfg, x, lp, (cache["xk"][i], cache["xv"][i]),
+                   decode=True)
         x = _mlp(cfg, x, lp)
     x = nnl.rms_norm(x, params["ln_f"])
     return _unembed(params, x)[:, 0], cache

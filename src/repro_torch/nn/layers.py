@@ -19,7 +19,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils import checkpoint as ckpt
 
-from repro_torch.distributed.mesh_state import (P, current_mesh, mesh_dims,
+from repro_torch.distributed.mesh_state import (P, current_mesh,
+                                                mesh_context, mesh_dims,
                                                 placements)
 
 # the products the "dots" remat policy keeps (the reference's
@@ -46,7 +47,16 @@ def remat(body, *, dots: bool = False):
     def run(*args):
         if not torch.is_grad_enabled():
             return body(*args)
-        return ckpt.checkpoint(body, *args, use_reentrant=False,
+        # the recomputation runs in autograd's thread (on the card not the
+        # caller's), so it re-enters the caller's mesh: its layouts, and
+        # so the local shapes the checkpoint saved, are the forward's
+        mesh = current_mesh()
+
+        def in_mesh(*a):
+            with mesh_context(mesh):
+                return body(*a)
+
+        return ckpt.checkpoint(in_mesh, *args, use_reentrant=False,
                                context_fn=context_fn)
 
     return run
@@ -89,6 +99,19 @@ def constrain(x, *logical):
     return x.redistribute(x.device_mesh, placements(P(*spec), x.device_mesh))
 
 
+def residual(y):
+    """A block's output as the residual stream is laid out: batch over the
+    data axes, whole on the model axis (a row-parallel product's partial
+    sums are all-reduced here, on a mesh without data axes too)."""
+    y = constrain(y, "dp", None, None)
+    if isinstance(y, DTensor) and any(isinstance(p, Partial)
+                                      for p in y.placements):
+        y = y.redistribute(y.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in y.placements])
+    return y
+
+
 def gather_dim(x, dim: int):
     """A DTensor whole along ``dim`` (the mesh dims that shard it
     replicate; the others keep their placements); a plain tensor as it
@@ -112,6 +135,74 @@ def replicate_like(t, x):
     mesh = x.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def laid_out(t, x, placements):
+    """``t`` as a DTensor on DTensor ``x``'s mesh in ``placements`` (a
+    plain ``t`` replicated first; redistributed only where it differs)."""
+    t = replicate_like(t, x)
+    want = tuple(placements)
+    if tuple(t.placements) == want:
+        return t
+    return t.redistribute(x.device_mesh, want)
+
+
+def placed_like(t, x):
+    """``t`` in ``x``'s placements where ``x`` is a DTensor, so that the
+    two can be concatenated; else ``t``."""
+    if not isinstance(x, DTensor):
+        return t
+    return laid_out(t, x, x.placements)
+
+
+def embed(tokens, table):
+    """``table[tokens]``: vocab-parallel (``vocab_parallel_embedding``)
+    where the table is a DTensor, so a vocab-sharded table is never
+    gathered."""
+    if isinstance(table, DTensor):
+        return vocab_parallel_embedding(tokens, table)
+    return table[tokens]
+
+
+class ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: local
+    gradients leave ``local_map`` (attention's q, k and v, the scan's) into
+    the DTensor reshape of the heads, whose backward is a ``view`` of the
+    local shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+class _GradAsForward(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the forward
+    value was (a DTensor's placements)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_as_forward(x):
+    """``x``; where it is a DTensor (with autograd on), its gradient comes
+    back in ``x``'s own placements.  Put after a reshape whose backward
+    cannot take any layout: heads flattened that do not divide the model
+    axis take no sharded gradient."""
+    if isinstance(x, DTensor) and torch.is_grad_enabled():
+        return _GradAsForward.apply(x)
+    return x
 
 
 class _SumOverGroup(torch.autograd.Function):
@@ -211,7 +302,8 @@ def apply_mrope(x, positions3, theta: float = 1e6, sections=(1, 1, 2)):
     idx = torch.arange(n, device=x.device)
     sec = (idx[None, :] < bounds[:, None]).float()
     sec[1:] = sec[1:] - sec[:-1]           # one-hot per section (3, D/2)
-    pos = positions3[..., None].float()                # (3, ..., S, 1)
+    inv, sec = replicate_like(inv, x), replicate_like(sec, x)
+    pos = replicate_like(positions3, x)[..., None].float()  # (3, ..., S, 1)
     ang = torch.einsum("k...sf,kf->...sf", pos * inv, sec)  # mix per section
     return _rotate(x, ang)
 
@@ -229,28 +321,88 @@ def mlp(x, p, act: str):
 def moe_mlp(x, p, act: str, top_k: int = 2):
     """Dense-dispatch top-k MoE: every expert sees every token, weighted by
     the (zeroed for non-selected) router probabilities."""
-    b, s, d = x.shape
     e = p["w1"].shape[0]
     logits = x @ p["router"]                                # (B,S,E)
     probs = torch.softmax(logits.float(), dim=-1)
-    vals, idxs = torch.topk(probs, top_k, dim=-1)           # (B,S,k)
-    vals = vals / torch.sum(vals, dim=-1, keepdim=True)
-    gate = torch.zeros((b, s, e), dtype=x.dtype, device=x.device)
-    gate.scatter_(-1, idxs, vals.to(x.dtype))
-    h1 = torch.einsum("bsd,edf->bsef", x, p["w1"])
-    if act == "silu_gated":
-        h = F.silu(h1) * torch.einsum("bsd,edf->bsef", x, p["w3"])
+    gate, idxs = _route(probs, top_k, e, x.dtype)
+    ws = [p["w1"], p["w2"]] + ([p["w3"]] if act == "silu_gated" else [])
+    if isinstance(x, DTensor):
+        out = _experts_per_shard(x, gate, ws, act)
     else:
-        h = F.gelu(h1, approximate="tanh")
-    h = constrain(h, "dp", None, None, "tp")
-    y = torch.einsum("bsef,efd->bsed", h, p["w2"])
-    out = constrain(torch.einsum("bsed,bse->bsd", y, gate), "dp", None, None)
+        out = _experts(x, gate, act, *ws)
+    out = constrain(out, "dp", None, None)
     aux = _load_balance_loss(probs, idxs, e)
     return out, aux
 
 
+def _route(probs, top_k: int, e: int, dtype):
+    """The top-k experts of each token and their renormalized weights
+    scattered onto the experts: (gate (B,S,E), idxs (B,S,k)).  DTensor
+    probabilities are routed on each rank's own rows through
+    ``local_map``, the experts whole: top-k's backward and the scatter have
+    no DTensor rule in every torch release."""
+    if isinstance(probs, DTensor):
+        rows = [pl if pl == Shard(0) else Replicate()
+                for pl in probs.placements]
+        return local_map(lambda pr: _route(pr, top_k, e, dtype),
+                         out_placements=(rows, rows), in_placements=(rows,),
+                         device_mesh=probs.device_mesh)(
+            laid_out(probs, probs, rows))
+    vals, idxs = torch.topk(probs, top_k, dim=-1)           # (B,S,k)
+    vals = vals / torch.sum(vals, dim=-1, keepdim=True)
+    gate = torch.zeros((*probs.shape[:-1], e), dtype=dtype,
+                       device=probs.device)
+    gate.scatter_(-1, idxs, vals.to(dtype))
+    return gate, idxs
+
+
+def _experts(x, gate, act: str, w1, w2, w3=None):
+    """Every expert on every token, summed with the gate's weights (the
+    reference's einsums; its constraint on the hidden dim is the f split
+    of ``_experts_per_shard``)."""
+    h1 = torch.einsum("bsd,edf->bsef", x, w1)
+    if act == "silu_gated":
+        h = F.silu(h1) * torch.einsum("bsd,edf->bsef", x, w3)
+    else:
+        h = F.gelu(h1, approximate="tanh")
+    y = torch.einsum("bsef,efd->bsed", h, w2)
+    return torch.einsum("bsed,bse->bsd", y, gate)
+
+
+def _experts_per_shard(x, gate, ws, act: str):
+    """``_experts`` on DTensors through ``local_map``, Megatron's MLP split
+    for every expert at once: on each mesh dim that shards the experts'
+    hidden dim f (w1 and w3 on their dim 2, w2 on its dim 1, as
+    ``param_specs`` places them) each rank runs its slice of f and its
+    output is a partial sum; the tokens and the gate keep their batch
+    shards and are whole elsewhere.  (DTensor's own einsum rules cannot
+    flatten a sharded f in every torch release.)"""
+    mesh = x.device_mesh
+    f_sharded = [pl == Shard(2) for pl in ws[0].placements]
+    rows = tuple(pl if pl == Shard(0) else Replicate() for pl in x.placements)
+
+    def on_f(dim):
+        return tuple(Shard(dim) if f else Replicate() for f in f_sharded)
+
+    w_pl = [on_f(2), on_f(1)] + [on_f(2)] * (len(ws) - 2)
+    # gradients: the tokens' and the gate's sum the f shards' parts; the
+    # weights' sum the batch shards' parts
+    part = tuple(Partial() if f else r for f, r in zip(f_sharded, rows))
+    w_grad = [tuple(Partial() if r == Shard(0) else w
+                    for r, w in zip(rows, pl)) for pl in w_pl]
+    args = [laid_out(t, x, pl)
+            for t, pl in zip([x, gate] + ws, [rows, rows] + w_pl)]
+    return local_map(lambda x, g, *w: _experts(x, g, act, *w),
+                     out_placements=list(part),
+                     in_placements=tuple([rows, rows] + w_pl),
+                     in_grad_placements=tuple([part, part] + w_grad),
+                     device_mesh=mesh)(*args)
+
+
 def _load_balance_loss(probs, idxs, n_experts: int):
-    """Switch-style auxiliary load-balancing loss."""
+    """Switch-style auxiliary load-balancing loss.  The one-hot rows of
+    the first choices are a comparison, which DTensor indices meet."""
     me = torch.mean(probs, dim=(0, 1))                      # (E,)
-    ce = torch.mean(F.one_hot(idxs[..., 0], n_experts).float(), dim=(0, 1))
+    ids = replicate_like(torch.arange(n_experts, device=idxs.device), idxs)
+    ce = torch.mean((idxs[..., :1] == ids).float(), dim=(0, 1))
     return n_experts * torch.sum(me * ce)

@@ -14,7 +14,6 @@ table.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import attention as attn
@@ -125,10 +124,7 @@ def _ffn(cfg: ArchConfig, h, lp):
 
 
 def _embed(cfg: ArchConfig, params, tokens):
-    table = params["embed"]
-    if isinstance(table, DTensor):
-        return nnl.vocab_parallel_embedding(tokens, table).to(_dtype(cfg))
-    return table[tokens].to(_dtype(cfg))
+    return nnl.embed(tokens, params["embed"]).to(_dtype(cfg))
 
 
 def _unembed(params, x):
@@ -156,7 +152,8 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
     Returns (logits (B,S,V), aux_loss)."""
     x = _embed(cfg, params, tokens)
     if patch_embeds is not None:
-        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+        x = torch.cat([nnl.placed_like(patch_embeds.to(x.dtype), x), x],
+                      dim=1)
     b, s, _ = x.shape
     pos = nnl.replicate_like(positions_for(cfg, b, s, device=x.device), x)
 

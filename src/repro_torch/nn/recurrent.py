@@ -14,6 +14,10 @@ Python loops; on the card the model layers reach the chunked form through
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.nn.layers import laid_out
 
 
 def chunk_for(seq: int, default: int = 128) -> int:
@@ -77,10 +81,50 @@ def linear_step(q, k, v, log_a, state):
 
     Returns y (B,H,V), new state.  Unlike the reference (functional), the
     new state is written into ``state`` itself, which is returned: a
-    decode cache passed in by layer views changes with it."""
+    decode cache passed in by layer views changes with it.  A DTensor
+    state (``shard.cache_specs`` places it) is stepped on each rank's own
+    shard (``_placed_step``)."""
+    if isinstance(state, DTensor):
+        return _placed_step(q, k, v, log_a, state)
     a = torch.exp(log_a.float())[..., None, None]
     state.mul_(a).add_(torch.einsum("bhk,bhv->bhkv", k.float(), v.float()))
     y = torch.einsum("bhk,bhkv->bhv", q.float(), state)
+    return y.to(q.dtype), state
+
+
+# the layout of the operands q and k (B,H,K), v (B,H,V), log_a (B,H) and
+# of y (B,H,V) where a (B,H,K,V) state is sharded on dim 0, 1, 2 or 3 of
+# one mesh dim; replicated elsewhere
+_STEP_LAYOUT = {0: (Shard(0), Shard(0), Shard(0), Shard(0)),
+                1: (Shard(1), Shard(1), Shard(1), Shard(1)),
+                2: (Shard(2), Replicate(), Replicate(), Partial()),
+                3: (Replicate(), Shard(2), Replicate(), Shard(2))}
+_REPLICATED = (Replicate(),) * 4
+
+
+def _placed_step(q, k, v, log_a, state):
+    """``linear_step`` of a DTensor state on its local shard.  The operands
+    are laid out once at entry to match it: a shard of K takes q's and k's
+    rows of K and the whole of v, and its y is a partial sum over K, summed
+    in fp32 before the cast.  The shard is updated in place."""
+    mesh = state.device_mesh
+    lay = [_STEP_LAYOUT[p.dim] if isinstance(p, Shard) else _REPLICATED
+           for p in state.placements]
+
+    def local(t, j: int):
+        return laid_out(t, state, [row[j] for row in lay]).to_local()
+
+    ql, kl, vl, al = local(q, 0), local(k, 0), local(v, 1), local(log_a, 2)
+    st = state.to_local()
+    st.mul_(torch.exp(al.float())[..., None, None]).add_(
+        torch.einsum("bhk,bhv->bhkv", kl.float(), vl.float()))
+    shape = (*q.shape[:2], v.shape[-1])
+    y = DTensor.from_local(torch.einsum("bhk,bhkv->bhv", ql.float(), st),
+                           mesh, [row[3] for row in lay], run_check=False,
+                           shape=shape,
+                           stride=(shape[1] * shape[2], shape[2], 1))
+    y = y.redistribute(mesh, [Replicate() if isinstance(p, Partial) else p
+                              for p in y.placements])
     return y.to(q.dtype), state
 
 
@@ -101,25 +145,52 @@ def slstm_scan(x, p, state0=None):
     A true recurrence (non-linear state dependence), so a loop over time.
     ``r_gates`` is cast to fp32 once before the loop (the reference casts it
     in every step; the values are the same).  As in the reference, the
-    state returned is ``state0``, not the final one."""
+    state returned is ``state0``, not the final one.  On DTensors the loop
+    runs on each rank's own rows (``_on_rows``)."""
     b, s, d = x.shape
     gates = x @ p["w_gates"] + p["b_gates"]                   # (B,S,4D)
     if state0 is None:
         state0 = (torch.zeros((b, d), dtype=torch.float32, device=x.device),
                   torch.zeros((b, d), dtype=torch.float32, device=x.device))
     r = p["r_gates"].float()
-    h, c = state0
+    return _on_rows(_slstm_loop, 1, gates, r, *state0).to(x.dtype), state0
+
+
+def _slstm_loop(gates, r, h, c):
     hs = []
-    for t in range(s):
+    for t in range(gates.shape[1]):
         h, c = _slstm_cell(gates[:, t].float(), h, c, r)
         hs.append(h)
-    return torch.stack(hs, 1).to(x.dtype), state0
+    return torch.stack(hs, 1)
 
 
 def slstm_step(x, p, state):
     """One decode step: x (B,D), state (h, c).  Returns (h in x's dtype,
     (h, c))."""
-    h, c = state
     g = x @ p["w_gates"] + p["b_gates"]
-    h, c = _slstm_cell(g.float(), h, c, p["r_gates"].float())
+    h, c = _on_rows(lambda g, r, h, c: _slstm_cell(g.float(), h, c, r), 2,
+                    g, p["r_gates"].float(), *state)
     return h.to(x.dtype), (h, c)
+
+
+def _on_rows(fn, n_out: int, gates, r, h, c):
+    """``fn(gates, r, h, c)`` (``n_out`` outputs).  Where ``gates`` is a
+    DTensor it runs on each rank's own rows through ``local_map``: the
+    gates, the state and the outputs keep their batch shards and are whole
+    elsewhere, r is whole, so each rank runs the recurrence of its rows in
+    full, as one card does, with no collective inside the loop.  r's
+    gradient is a partial sum over the mesh dims that shard the rows."""
+    if not isinstance(gates, DTensor):
+        return fn(gates, r, h, c)
+    mesh = gates.device_mesh
+    rows = tuple(p if p == Shard(0) else Replicate()
+                 for p in gates.placements)
+    whole = (Replicate(),) * mesh.ndim
+    args = [laid_out(t, gates, pl) for t, pl in
+            zip((gates, r, h, c), (rows, whole, rows, rows))]
+    r_grad = tuple(Partial() if p == Shard(0) else p for p in rows)
+    return local_map(fn, out_placements=list(rows) if n_out == 1 else
+                     (list(rows),) * n_out,
+                     in_placements=(rows, whole, rows, rows),
+                     in_grad_placements=(rows, r_grad, rows, rows),
+                     device_mesh=mesh)(*args)

@@ -86,7 +86,9 @@ def _mlstm_qkvg(cfg, x, lp):
     gi = qkg[..., 2 * hd]                                    # (B,S,H)
     gf = qkg[..., 2 * hd + 1]
     v = valh
-    log_a = F.logsigmoid(gf.float())                         # decay in (0,1)
+    # log sigmoid as -softplus(-x), as jax.nn.log_sigmoid computes it (its
+    # backward also runs on DTensors)
+    log_a = -F.softplus(-gf.float())                         # decay in (0,1)
     i_gate = torch.sigmoid(gi.float())
     return q, k, v, log_a, i_gate, gate
 
@@ -96,26 +98,31 @@ def _mlstm_block(cfg, x, lp, chunk: int):
     hin = nnl.rms_norm(x, lp["ln"])
     q, k, v, log_a, i_gate, gate = _mlstm_qkvg(cfg, hin, lp)
     k = k * i_gate[..., None].to(k.dtype)                    # input gating
+    # the scan runs on each rank's local heads (replicated where they do
+    # not divide the model axis)
+    q, k, v = (nnl.constrain(t, "dp", None, "tp", None) for t in (q, k, v))
     y = ops.ssm_scan(q, k, v, log_a, chunk=chunk)
     b, s = y.shape[:2]
     y = y.reshape(b, s, inner) * F.silu(gate)
-    return x + y @ lp["w_down"]
+    return x + nnl.residual(y @ lp["w_down"])
 
 
 def _slstm_block(cfg, x, lp):
     h = nnl.rms_norm(x, lp["ln"])
     y, _ = rec.slstm_scan(h, lp)
-    return x + y @ lp["w_out"]
+    return x + nnl.residual(y @ lp["w_out"])
 
 
 def _unembed(params, x):
-    return x @ params["embed"].T.to(x.dtype)
+    """Tied unembedding; a vocab-sharded table gives vocab-sharded
+    logits."""
+    return nnl.constrain(x @ params["embed"].T.to(x.dtype), "dp", None, "tp")
 
 
 def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
     """tokens (B, S).  Returns (logits (B,S,V), 0.0).  One ``ssm_scan`` per
     mLSTM block; an sLSTM block closes each group of ``slstm_every``."""
-    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    x = nnl.embed(tokens, params["embed"]).to(getattr(torch, cfg.dtype))
     chunk = rec.chunk_for(x.shape[1])
     k = cfg.slstm_every
     n_groups = cfg.n_layers // k if k else 0
@@ -165,7 +172,8 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     ``m_state``, ``s_h`` and ``s_c`` are updated in place (at batch 4 the
     xLSTM-1.3B ``m_state`` is 2.8 GB) and the cache itself is returned."""
     inner, h, hd = _dims(cfg)
-    x = params["embed"][tokens][:, None, :].to(getattr(torch, cfg.dtype))
+    x = nnl.embed(tokens, params["embed"])[:, None, :].to(
+        getattr(torch, cfg.dtype))
     b = x.shape[0]
     k = cfg.slstm_every
     n_groups = cfg.n_layers // k if k else 0
@@ -180,7 +188,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
         y, _ = rec.linear_step(q[:, 0], kk[:, 0], v[:, 0], log_a[:, 0],
                                cache["m_state"][i])
         y = y.reshape(b, 1, inner) * F.silu(gate)
-        return x + y @ lp["w_down"]
+        return x + nnl.residual(y @ lp["w_down"])
 
     off = 0
     for gi in range(n_groups):
@@ -191,9 +199,9 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
         hin = nnl.rms_norm(x, sp["ln"])
         y, (sh, sc) = rec.slstm_step(hin[:, 0], sp,
                                      (cache["s_h"][gi], cache["s_c"][gi]))
-        cache["s_h"][gi] = sh
-        cache["s_c"][gi] = sc
-        x = x + (y @ sp["w_out"])[:, None]
+        cache["s_h"][gi].copy_(sh)
+        cache["s_c"][gi].copy_(sc)
+        x = x + nnl.residual((y @ sp["w_out"])[:, None])
     for i in range(off, mp["w_up"].shape[0]):
         x = mstep(x, i)
     x = nnl.rms_norm(x, params["ln_f"])

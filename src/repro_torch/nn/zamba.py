@@ -84,8 +84,9 @@ def _layer(stack: dict, i: int) -> dict:
 
 def _mamba_qkvg(cfg, hin, lp):
     """q and k (the C and B projections) are shared by all heads: they are
-    returned as ``expand``ed views (stride 0 on the head axis), which the
-    scan kernel reads in place without a copy."""
+    returned with one head, (B,S,1,N), which ``ssm_scan`` expands over v's
+    heads (stride 0; the kernel reads them in place without a copy, on a
+    mesh each rank over its own heads)."""
     inner, h, hd, N = _dims(cfg)
     b, s, _ = hin.shape
     up = hin @ lp["w_in"]
@@ -96,10 +97,10 @@ def _mamba_qkvg(cfg, hin, lp):
     # v=x heads, q=C
     log_a = -F.softplus(dt_.float() + lp["a_log"][None, None, :])  # (B,S,H)
     dt_g = F.softplus(dt_.float())                                 # input gate
-    k = Bm[:, :, None, :].expand(b, s, h, N)
-    q = Cm[:, :, None, :].expand(b, s, h, N)
+    k = Bm[:, :, None, :]
+    q = Cm[:, :, None, :]
     v = xpath.reshape(b, s, h, hd) * dt_g[..., None].to(xpath.dtype)
-    return q, k, v, log_a, gate
+    return q, k, nnl.constrain(v, "dp", None, "tp", None), log_a, gate
 
 
 def _mamba_block(cfg, x, lp, chunk: int):
@@ -109,31 +110,29 @@ def _mamba_block(cfg, x, lp, chunk: int):
     y = ops.ssm_scan(q, k, v, log_a, chunk=chunk)
     b, s = x.shape[:2]
     y = y.reshape(b, s, inner) * F.silu(gate)
-    return x + y @ lp["w_out"]
+    return x + nnl.residual(y @ lp["w_out"])
 
 
 def _shared_in(cfg, x, x0, sp, la):
     """Norm of [hidden, embedding] and the q/k/v projections (q through the
     application's LoRA) of the shared block, heads split."""
-    b, s, _ = x.shape
-    cat = torch.cat([x, x0], dim=-1)
+    cat = torch.cat([x, nnl.placed_like(x0, x)], dim=-1)
     h = nnl.rms_norm(cat, la["ln1"] * sp["ln1"])
     wq = sp["wq"] + la["qa"] @ la["qb"]
     hd = cfg.head_dim
-    q = (h @ wq).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ sp["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ sp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = attn._split_heads(h @ wq, cfg.n_heads, hd)
+    k = attn._split_heads(h @ sp["wk"], cfg.n_kv_heads, hd)
+    v = attn._split_heads(h @ sp["wv"], cfg.n_kv_heads, hd)
     return q, k, v
 
 
 def _shared_out(x, o, sp, la):
     """Attention output projection and the LoRA-adapted gated MLP."""
-    b, s = x.shape[:2]
-    x = x + o.reshape(b, s, -1) @ sp["wo"]
+    x = x + nnl.residual(attn.attn_out(o, sp))
     h2 = nnl.rms_norm(x, la["ln2"] * sp["ln2"])
     w1 = sp["w1"] + la["m1a"] @ la["m1b"]
     y = F.silu(h2 @ w1) * (h2 @ sp["w3"])
-    return x + y @ sp["w2"]
+    return x + nnl.residual(y @ sp["w2"])
 
 
 def _shared_block(cfg, x, x0, sp, la):
@@ -141,8 +140,9 @@ def _shared_block(cfg, x, x0, sp, la):
     Attention keeps ``sdpa``'s default ``impl``, as the reference does."""
     b, s, _ = x.shape
     q, k, v = _shared_in(cfg, x, x0, sp, la)
-    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
-        b, s)
+    pos = nnl.replicate_like(torch.arange(s, dtype=torch.int32,
+                                          device=x.device)[None].expand(b, s),
+                             x)
     q = nnl.apply_rope(q, pos, cfg.rope_theta)
     k = nnl.apply_rope(k, pos, cfg.rope_theta)
     o = attn.sdpa(q, k, v, causal=True)
@@ -152,7 +152,7 @@ def _shared_block(cfg, x, x0, sp, la):
 def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
     """tokens (B, S).  Returns (logits (B,S,V), 0.0).  One ``ssm_scan`` per
     Mamba2 layer; the shared block follows every ``shared_attn_every``."""
-    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    x = nnl.embed(tokens, params["embed"]).to(getattr(torch, cfg.dtype))
     x0 = x
     chunk = rec.chunk_for(x.shape[1])
     k = cfg.shared_attn_every
@@ -172,7 +172,7 @@ def forward(cfg: ArchConfig, params, tokens, patch_embeds=None):
     for i in range(off, cfg.n_layers):
         x = body(x, _layer(mp, i))
     x = nnl.rms_norm(x, params["ln_f"])
-    return x @ params["embed"].T.to(x.dtype), 0.0
+    return _unembed(params, x), 0.0
 
 
 def loss_fn(cfg: ArchConfig, params, batch):
@@ -202,7 +202,8 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     ``recurrent.linear_step`` and ``attention.cache_update``) and the cache
     itself is returned."""
     pos = int(pos)
-    x = params["embed"][tokens][:, None, :].to(getattr(torch, cfg.dtype))
+    x = nnl.embed(tokens, params["embed"])[:, None, :].to(
+        getattr(torch, cfg.dtype))
     x0 = x
     inner, h, hd, N = _dims(cfg)
     k_every = cfg.shared_attn_every
@@ -213,12 +214,14 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
         lp = _layer(mp, i)
         hin = nnl.rms_norm(x, lp["ln"])
         q, kk, v, log_a, gate = _mamba_qkvg(cfg, hin, lp)
-        y, _ = rec.linear_step(q[:, 0], kk[:, 0], v[:, 0], log_a[:, 0],
-                               cache["ssm"][i])
+        y, _ = rec.linear_step(q[:, 0].expand(b, h, N),
+                               kk[:, 0].expand(b, h, N), v[:, 0],
+                               log_a[:, 0], cache["ssm"][i])
         y = y.reshape(b, 1, inner) * F.silu(gate)
-        return x + y @ lp["w_out"]
+        return x + nnl.residual(y @ lp["w_out"])
 
-    p = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    p = nnl.replicate_like(torch.full((b, 1), pos, dtype=torch.int32,
+                                      device=x.device), x)
     off = 0
     for gi in range(_napp(cfg)):
         for i in range(off, off + k_every):
@@ -226,8 +229,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
         off += k_every
         sp, la = params["shared"], _layer(params["lora"], gi)
         q, kk, vv = _shared_in(cfg, x, x0, sp, la)
-        q = nnl.apply_rope(q, p, cfg.rope_theta)
-        kk = nnl.apply_rope(kk, p, cfg.rope_theta)
+        # q, k and v laid out as the KV cache (``shard.cache_specs``)
+        q, kk, vv = (nnl.constrain(t, "dp", None, "tp", None) for t in (
+            nnl.apply_rope(q, p, cfg.rope_theta),
+            nnl.apply_rope(kk, p, cfg.rope_theta), vv))
         lc = attn.cache_update({"k": cache["k"][gi], "v": cache["v"][gi]},
                                kk, vv, pos)
         o = attn.decode_attend(q, lc, pos)
@@ -235,4 +240,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int):
     for i in range(off, cfg.n_layers):
         x = mstep(x, i)
     x = nnl.rms_norm(x, params["ln_f"])
-    return (x @ params["embed"].T.to(x.dtype))[:, 0], cache
+    return _unembed(params, x)[:, 0], cache
+
+
+def _unembed(params, x):
+    """Tied unembedding; a vocab-sharded table gives vocab-sharded
+    logits."""
+    return nnl.constrain(x @ params["embed"].T.to(x.dtype), "dp", None, "tp")

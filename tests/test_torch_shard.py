@@ -83,6 +83,22 @@ def test_batch_and_cache_specs_equal_reference(arch, data, model):
             jshard.cache_specs(jc, jcfg, jm))
 
 
+@pytest.mark.parametrize("arch", sorted(jconfigs.ARCHS))
+@pytest.mark.parametrize("data,model", SIZES + [(1, 2), (1, 16)])
+def test_smoke_cache_specs_equal_reference(arch, data, model):
+    """Every family's decode cache at smoke size (xLSTM's m_state, s_h and
+    s_c, Zamba2's ssm with its KV caches, Seamless's cross K/V, the KV
+    caches of the others), the batch of the family tests and a batch of
+    one."""
+    jm, tm = _meshes(data, model)
+    jcfg, tcfg = jconfigs.get(arch).smoke(), tconfigs.get(arch).smoke()
+    for batch, seq in ((4, 16), (1, 64)):
+        jc = japi.abstract_cache(jcfg, batch, seq)
+        tc = tapi.abstract_cache(tcfg, batch, seq)
+        want = _jflat(jshard.cache_specs(jc, jcfg, jm))
+        assert want and _tflat(tshard.cache_specs(tc, tcfg, tm)) == want
+
+
 def test_zero1_and_placements():
     """zero1_spec as the reference; a spec's placements per mesh dim."""
     from torch.distributed.tensor import Replicate, Shard

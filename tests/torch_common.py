@@ -174,3 +174,159 @@ def extreme_horizontal_args(rng, n=2):
     relu = np.repeat(np.arange(len(EXTREME_SHIFTS)) % 2, k).astype(np.int32)
     return (i8(rng, (n, h, w, ic)), i8(rng, (3, 3, ic, oc)),
             extreme_bias(rng, oc), shift, relu, (1, 1), (1, 1))
+
+
+# --------------------------------------------------- families under a mesh
+ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
+# the reference's own tolerances (tests/test_multidevice.py): loss of the
+# sharded step against the unsharded one, and its params
+MESH_LOSS_TOL = 5e-3
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-3, 5e-4
+FP32_LOGITS_TOL = 1e-4      # TP = 2 fp32 prefill against unsharded and JAX
+MESH_GRAD_ACCUM = 2
+
+
+def tree_paths(tree, prefix="") -> dict:
+    """Leaves of nested dictionaries as numpy, by "/"-joined path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_paths(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def mesh_ranks(case: str, in_dir):
+    """Start ``tests/torch_ranks.py CASE IN_DIR OUT`` in a subprocess (its
+    own process group of spawned gloo CPU ranks, 300 s at most).  Returns
+    a function that waits for it and returns rank 0's result."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    out = in_dir / f"{case.replace(':', '_')}.pkl"
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT / 'tests'}",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "tests" /
+                                                 "torch_ranks.py"), case,
+                             str(in_dir), str(out)],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+    def wait() -> dict:
+        try:
+            _, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        assert proc.returncode == 0, err[-4000:]
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+    return wait
+
+
+def family_batches(cfg, seed: int = 0):
+    """Numpy inputs of one family: the prefill batch and a prompt
+    (B = 4, 64 positions), and a training batch (8 rows of 32 positions,
+    labels the next tokens)."""
+    rng = np.random.default_rng(seed)
+    d, v = cfg.d_model, cfg.vocab
+
+    def toks(b, s):
+        return rng.integers(0, v, (b, s)).astype(np.int32)
+
+    def feats(b, s):
+        return rng.standard_normal((b, s, d)).astype(np.float32)
+
+    serve = {"prompt": toks(4, 8)}
+    t = toks(8, 33)
+    train = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    if cfg.family == "audio":
+        serve.update(frames=feats(4, 48), tokens=toks(4, 16))
+        train.update(frames=feats(8, 16))
+    elif cfg.family == "vlm":
+        serve.update(patch_embeds=feats(4, cfg.n_patches),
+                     tokens=toks(4, 64 - cfg.n_patches))
+        train.update(patch_embeds=feats(8, cfg.n_patches))
+    else:
+        serve["tokens"] = toks(4, 64)
+    return serve, train
+
+
+def family_mesh_run(arch: str, d) -> dict:
+    """One family at smoke size (fp32): the JAX package's weights and
+    prefill, the unsharded port's prefill, serve loop and late-sync step
+    (``grad_accum=2``) on the same inputs, then the port's TP = 2 prefill
+    and serve loop on (1, 2) gloo CPU ranks and its (2, 2) late step on
+    four (``tests/torch_ranks.py``)."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro import configs as jconfigs
+    from repro.launch import serve as jserve
+    from repro.models import api as japi
+    from repro_torch.core.carry import lm_params_from_reference
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.optim.adamw import AdamWConfig, init_moments
+    from torch_ranks import family_cfg
+
+    jcfg = jconfigs.get(arch).smoke()
+    cfg = family_cfg(arch)
+    jparams = japi.init_params(jcfg)
+    np.savez(d / "params.npz", **tree_paths(jparams))
+    serve, train = family_batches(jcfg)
+    np.savez(d / "batch.npz", **serve)
+    np.savez(d / "train.npz", **train)
+    # the ranks run while this process computes the references
+    ranks = {k: mesh_ranks(f"family_{k}:{arch}", d)
+             for k in ("serve", "train")}
+    ins = {k: v for k, v in serve.items() if k != "prompt"}
+    want = np.asarray(jserve.make_prefill_step(jcfg)(
+        jparams, {k: jnp.asarray(v) for k, v in ins.items()}))
+    params = lm_params_from_reference(jparams, "cpu")
+    with torch.no_grad():
+        plain = tserve.make_prefill_step(cfg)(
+            params, {k: torch.from_numpy(v) for k, v in ins.items()}).numpy()
+    tokens = tserve.serve_loop(cfg, params, serve["prompt"], 8,
+                               "cpu")["tokens"]
+    state = {"params": params, "opt": init_moments(params, AdamWConfig())}
+    new, m = ttrain.make_train_step(family_cfg(arch, flash=False),
+                                    grad_accum=MESH_GRAD_ACCUM)(
+        state, {k: torch.from_numpy(v) for k, v in train.items()})
+    return {"cfg": cfg, "jax": want, "plain": plain, "tokens": tokens,
+            "loss": float(m["loss"]),
+            "params": tree_paths({k: (v.numpy() if torch.is_tensor(v) else
+                                      {kk: vv.numpy() for kk, vv in
+                                       v.items()})
+                                  for k, v in new["params"].items()}),
+            **{k: wait() for k, wait in ranks.items()}}
+
+
+def check_family_serve(run: dict) -> None:
+    """TP = 2 prefill within ``FP32_LOGITS_TOL`` of the unsharded port and
+    of the JAX package, the serve loop's tokens those of the unsharded
+    loop, and no jax or reference module loaded by the ranks."""
+    r = run["serve"]
+    assert r["logits"].shape == run["jax"].shape
+    assert np.abs(r["logits"] - run["plain"]).max() < FP32_LOGITS_TOL
+    assert np.abs(r["logits"] - run["jax"]).max() < FP32_LOGITS_TOL
+    np.testing.assert_array_equal(r["tokens"], run["tokens"])
+    assert r["foreign_modules"] == []
+
+
+def check_family_train(run: dict) -> None:
+    """The (2, 2) late-sync step against the unsharded step, at the
+    reference's tolerances."""
+    r = run["train"]
+    assert r["grads_finite"]
+    assert abs(r["loss"] - run["loss"]) < MESH_LOSS_TOL
+    got = tree_paths(r["params"])
+    assert got.keys() == run["params"].keys()
+    for k, want in run["params"].items():
+        np.testing.assert_allclose(got[k], want, rtol=MESH_PARAM_RTOL,
+                                   atol=MESH_PARAM_ATOL, err_msg=k)

@@ -247,18 +247,106 @@ def compress(rank, world, in_dir):
     return {"mean": mean.numpy(), "err": torch.stack(gathered).numpy()}
 
 
+# ---------------------------------------------------------- every family
+def family_cfg(arch: str, flash: bool = True):
+    """The smoke config (fp32) of ``arch`` as the family tests run it:
+    serving takes attention through flash (its plain version on the CPU)
+    where the family's prefill may; training keeps the config's own
+    attention (flash has no backward)."""
+    from repro_torch import configs
+
+    cfg = configs.get(arch).smoke()
+    if flash and cfg.family in ("dense", "moe", "vlm"):
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+    return cfg
+
+
+def _batch(in_dir, name="batch.npz"):
+    with np.load(os.path.join(in_dir, name)) as z:
+        return {k: torch.from_numpy(z[k]) for k in z.files}
+
+
+def _spy_kernels():
+    """Record the (q, v) shapes and q's head stride of every plain scan
+    call, and the q and k shapes of every flash call, of this process."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ssm_scan import ops as scan
+
+    seen = {"scan": [], "flash": []}
+    plain_scan, plain_flash = scan.chunked_linear_scan, flash.attention_ref
+
+    def spy_scan(q, k, v, log_a, **kw):
+        seen["scan"].append((tuple(q.shape), tuple(v.shape), q.stride(2)))
+        return plain_scan(q, k, v, log_a, **kw)
+
+    def spy_flash(q, k, v, **kw):
+        seen["flash"].append((tuple(q.shape), tuple(k.shape)))
+        return plain_flash(q, k, v, **kw)
+
+    scan.chunked_linear_scan, flash.attention_ref = spy_scan, spy_flash
+    return seen
+
+
+def family_serve(rank, world, in_dir, arch):
+    """TP = 2 on a (1, 2) mesh: the prefill's logits, the serve loop's
+    tokens and each kernel's per-rank shapes."""
+    from repro_torch.launch import shard
+    from repro_torch.launch.mesh import make_mesh, mesh_context
+    from repro_torch.launch.serve import make_prefill_step, serve_loop
+    from repro_torch.launch.train import place_state
+
+    cfg = family_cfg(arch)
+    mesh = make_mesh(*SERVE_MESH, device_type="cpu")
+    params = load_params(os.path.join(in_dir, "params.npz"))
+    params = place_state(params, shard.param_specs(params, mesh), mesh)
+    batch = _batch(in_dir)
+    prompt = batch.pop("prompt").numpy()
+    seen = _spy_kernels()
+    with torch.no_grad(), mesh_context(mesh):
+        logits = make_prefill_step(cfg)(params, batch).full_tensor()
+    prefill_seen = {k: sorted(set(v)) for k, v in seen.items()}
+    with mesh_context(mesh):
+        loop = serve_loop(cfg, params, prompt, 8, "cpu", mesh=mesh)
+    return {"logits": logits.numpy(), "tokens": loop["tokens"],
+            "seen": prefill_seen,
+            "foreign_modules": sorted(m for m in sys.modules if m.split(
+                ".")[0] in ("jax", "jaxlib", "repro"))}
+
+
+def family_train(rank, world, in_dir, arch):
+    """One (2, 2) ``grad_sync="late"`` step."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import make_train_step
+
+    cfg = family_cfg(arch, flash=False)
+    mesh = make_mesh(*TRAIN_MESH, device_type="cpu")
+    params = load_params(os.path.join(in_dir, "params.npz"))
+    new, metrics = make_train_step(cfg, grad_accum=GRAD_ACCUM,
+                                   grad_sync="late", mesh=mesh)(
+        _state(cfg, params, mesh), _batch(in_dir, "train.npz"))
+    return {"loss": float(metrics["loss"]), "params": _full(new["params"]),
+            "grads_finite": all(bool(torch.isfinite(g.to_local()).all())
+                                for g in leaves(metrics["grads"]))}
+
+
 CASES = {"train": (train, 4), "serve": (serve, 2), "serve4": (serve, 4),
          "elastic": (elastic, 4),
-         "compress": (compress, 4)}
+         "compress": (compress, 4),
+         "family_serve": (family_serve, 2),
+         "family_train": (family_train, 4)}
 
 
 def main(argv=None) -> None:
+    """CASE may name an arch after a colon (``family_serve:xlstm-1.3b``),
+    which the rank program takes after IN_DIR."""
     case, in_dir, out_file = argv or sys.argv[1:]
     from repro_torch.launch.mesh import run_ranks
 
+    case, *arch = case.split(":")
     fn, world = CASES[case]
-    res = run_ranks(fn, world, (in_dir,), device_type="cpu", timeout_s=60,
-                    join_s=240)
+    res = run_ranks(fn, world, (in_dir, *arch), device_type="cpu",
+                    timeout_s=60, join_s=240)
     with open(out_file, "wb") as f:
         pickle.dump(res[0], f)
 
