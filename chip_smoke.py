@@ -204,12 +204,14 @@ Phases (any failure raises and the script exits non-zero):
     (1, 2), a 4x2048 bf16 prefill and the serve loop of (e) Zamba2-1.2B
     at full depth (38 scan launches a rank on 16 heads, q and k at head
     stride 0; fp32 at one layer against the unsharded model within
-    ``MESH_FP32_REL_TOL`` of the largest |logit|), (f) xLSTM-1.3B at 8
-    layers (7 launches a rank on 2 heads; one sLSTM block's loop timed on
+    ``MESH_FP32_REL_TOL`` of the largest |logit|), (f) xLSTM-1.3B at full
+    depth (42 launches a rank on 2 heads; one sLSTM block's loop timed on
     the mesh and alone), (g) Qwen2-VL-7B at full depth with patch
     embeddings (28 flash launches a rank on 14 q / 2 kv heads) and
     Seamless-m4t-large-v2 at full depth, (h) Mixtral-8x7B at 4 layers (4
-    flash launches a rank on 16 / 4 heads): each without a plain call,
+    flash launches a rank on 16 / 4 heads; fp32 at two layers against the
+    unsharded model, on flash and with plain attention, within
+    ``MESH_FP32_REL_TOL`` of the largest |logit|): each without a plain call,
     its logits at every 8th position no farther from the fp32 prefill than
     1.25 times the unsharded bf16 prefill's; (i) one (2, 2)
     ``grad_sync="late"`` step (4x2048, ``grad_accum=2``) of Zamba2 at 6
@@ -3175,7 +3177,7 @@ def nccl_rank(rank, world) -> dict:
 # are computed first in this process and read by rank 0 from files.
 MESH_FAMILIES = {
     "zamba2-1.2b": {},                                     # 13e, 38 layers
-    "xlstm-1.3b": {"n_layers": 8},                         # 13f, 7 + 1
+    "xlstm-1.3b": {},                                      # 13f, 42 + 6
     "qwen2-vl-7b": {"attn_impl": "flash"},                 # 13g, 28 layers
     "seamless-m4t-large-v2": {},                           # 13g, 24 + 24
     # 13h: 4 of 32 layers (the two ranks share the card; full depth is
@@ -3188,7 +3190,7 @@ MESH_FAMILY_PROMPT = (8, 8)            # serve loop: prompt, greedy steps
 MESH_LOGIT_STRIDE = 8                  # logits held at every 8th position
 # the flash and scan launches of one rank's prefill
 MESH_FAMILY_LAUNCHES = {"zamba2-1.2b": {"ssm_scan": 38},
-                        "xlstm-1.3b": {"ssm_scan": 7},
+                        "xlstm-1.3b": {"ssm_scan": 42},
                         "qwen2-vl-7b": {"flash_attention": 28},
                         "seamless-m4t-large-v2": {},
                         "mixtral-8x7b": {"flash_attention": 4}}
@@ -3207,6 +3209,11 @@ MESH_ZAMBA_FP32 = DEPTH_CHECKS["zamba2-1.2b"]     # 13e's fp32 check
 # some 3e-4, and the shared block carries it to about 1.3e-4 on logits of
 # 5, past an absolute 1e-4 (``block_out_diff`` is logged beside it)
 MESH_FP32_REL_TOL = 1e-4
+# 13h's fp32 check: Mixtral at full width and two layers (the routing
+# and the experts' f split twice, each layer's flash launch on the
+# rank's 16 / 4 heads), window 0 as in 13h
+MESH_MIXTRAL_FP32 = {"n_layers": 2, "dtype": "float32", "attn_impl": "flash",
+                     "window": 0}
 
 
 def _card_memory() -> dict:
@@ -3289,13 +3296,17 @@ def mesh_family_refs(dev) -> dict:
         launches, plain = all_counts()
         bf16 = logits[:, ::MESH_LOGIT_STRIDE].float().cpu()
         del logits
-        torch.backends.cuda.matmul.allow_tf32 = False
         cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="xla")
         p32 = _to(params, torch.float32)
         del params
         torch.cuda.empty_cache()
-        with plain_scan():
-            ref = serve.make_prefill_step(cfg32)(p32, batch)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with plain_scan():
+                ref = serve.make_prefill_step(cfg32)(p32, batch)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
         fp32 = ref[:, ::MESH_LOGIT_STRIDE].cpu()
         del ref, p32, batch
         torch.cuda.empty_cache()
@@ -3390,8 +3401,8 @@ def family_tp_rank(rank, world, out_dir) -> dict:
                 res["slstm_ms"] = _slstm_times(cfg, params, dev)
         del params
         torch.cuda.empty_cache()
-        if arch == "zamba2-1.2b":
-            res["fp32_check"] = _zamba_fp32_tp_check(rank, mesh, dev)
+        if arch in MESH_FP32_CHECKS:
+            res["fp32_check"] = MESH_FP32_CHECKS[arch](rank, mesh, dev)
         res["seconds"] = time.perf_counter() - t_arch
         out[arch] = res
     return out
@@ -3471,6 +3482,59 @@ def _zamba_fp32_tp_check(rank, mesh, dev) -> dict:
     del full, params
     torch.cuda.empty_cache()
     return res
+
+
+def _mixtral_fp32_tp_check(rank, mesh, dev) -> dict:
+    """Mixtral at full width and two layers (``MESH_MIXTRAL_FP32``), fp32,
+    on 4x512 tokens: the TP = 2 prefill (flash's fp32 route on each rank's
+    heads, the routing and the experts on each rank's shard) against the
+    unsharded prefill through the same kernel and against the unsharded
+    model with plain attention, on rank 0 (``MESH_FP32_REL_TOL``)."""
+    import dataclasses
+
+    from repro_torch.launch import serve, shard
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.launch.train import place_state
+    from repro_torch.models import api
+
+    cfg = _family_cfg("mixtral-8x7b", MESH_MIXTRAL_FP32)
+    full = api.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 1), dev)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(
+        SEED + 3).integers(0, cfg.vocab, (MESH_FAMILY_BATCH[0], 512)),
+        device=dev)}
+    step = serve.make_prefill_step(cfg)
+    with torch.no_grad():
+        params = place_state(full, shard.param_specs(full, mesh), mesh)
+        if rank:
+            del full
+        torch.cuda.empty_cache()
+        with mesh_context(mesh):
+            reset_all_counts()
+            got = step(params, batch).full_tensor()
+            launches, plain = all_counts()
+        del params
+        res = {"launches": launches["flash_attention"],
+               "plain": sum(plain.values())}
+        if rank == 0:
+            want = step(full, batch)
+            xla = serve.make_prefill_step(dataclasses.replace(
+                cfg, attn_impl="xla"))(full, batch)
+            res.update(max_abs_diff=float((got - want).abs().max()),
+                       vs_unsharded_plain=float((got - xla).abs().max()),
+                       unsharded_kernel_vs_plain=float(
+                           (want - xla).abs().max()),
+                       argmax_agreement=float(
+                           (got.argmax(-1) == xla.argmax(-1)).float().mean()),
+                       logits_max_abs=float(xla.abs().max()))
+            del full
+    torch.cuda.empty_cache()
+    return res
+
+
+# the fp32 TP = 2 checks of 13e and 13h, each on its own cut-depth model
+MESH_FP32_CHECKS = {"zamba2-1.2b": _zamba_fp32_tp_check,
+                    "mixtral-8x7b": _mixtral_fp32_tp_check}
 
 
 def family_train_rank(rank, world) -> dict:
@@ -3566,6 +3630,13 @@ def family_mesh_checks(refs, served, trained, card: str) -> dict:
             if not (f["max_abs_diff"] <= MESH_FP32_REL_TOL
                     * f["logits_max_abs"] and f["launches"] == 1):
                 raise AssertionError(f"{arch} fp32 TP=2 at one layer: {f}")
+        if arch == "mixtral-8x7b":
+            f = s["fp32_check"]
+            if not (max(f["max_abs_diff"], f["vs_unsharded_plain"])
+                    <= MESH_FP32_REL_TOL * f["logits_max_abs"]
+                    and f["launches"] == MESH_MIXTRAL_FP32["n_layers"]
+                    and f["plain"] == 0):
+                raise AssertionError(f"{arch} fp32 TP=2 at two layers: {f}")
         res["tp"][arch] = {"fields": fields, "ranks": [
             {k: v for k, v in ranks[arch].items() if k != "tokens"}
             for ranks in served]}
@@ -3596,6 +3667,14 @@ def family_mesh_checks(refs, served, trained, card: str) -> dict:
                f"path's chunk-64 spread "
                f"{s['fp32_check']['plain_chunk64_spread']})"
                if arch == "zamba2-1.2b" else "")
+            + (f"; fp32 two layers: TP=2 vs unsharded (both on flash) max "
+               f"|diff| {s['fp32_check']['max_abs_diff']}, vs the unsharded "
+               f"plain attention {s['fp32_check']['vs_unsharded_plain']} "
+               f"(largest |logit| {s['fp32_check']['logits_max_abs']}; "
+               f"unsharded flash vs plain "
+               f"{s['fp32_check']['unsharded_kernel_vs_plain']}, argmax "
+               f"agreement {s['fp32_check']['argmax_agreement']})"
+               if arch == "mixtral-8x7b" else "")
             + (f"; one sLSTM block's loop (4x2048) {s['slstm_ms']} ms"
                if "slstm_ms" in s else ""))
     for arch, fields in MESH_TRAIN_FAMILIES.items():

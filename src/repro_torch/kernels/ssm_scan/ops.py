@@ -46,11 +46,10 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import row_rel_err  # noqa: F401
-from repro_torch.nn.layers import ContiguousGrad, laid_out
+from repro_torch.nn.layers import per_shard
 from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
 
 # the kernels of each dtype's route, and the column slab widths of S each
@@ -255,10 +254,9 @@ def _scan_placements(v):
 
 
 def _scan_per_head(q, k, v, log_a, chunk: int):
-    """``ssm_scan`` on each rank's local rows and heads through
-    ``local_map``: the kernel (inside ``ScanFunction``, so its backward
-    runs per rank too) on the card, the plain version on the CPU.  The
-    output takes the layout ``_scan_placements`` picks.  One-head q and k
+    """``ssm_scan`` on each rank's local rows and heads (``per_shard``): the
+    kernel (inside ``ScanFunction``, so its backward runs per rank too) on
+    the card, the plain version on the CPU.  The output takes the layout ``_scan_placements`` picks.  One-head q and k
     (B,S,1,K) stay whole over the head shards and are expanded to the
     rank's local heads inside, with stride 0; their gradients leave as
     partial sums over the mesh dims that shard the heads."""
@@ -269,17 +267,9 @@ def _scan_per_head(q, k, v, log_a, chunk: int):
         # gradient there is a sum of the ranks' local heads'
         qk = tuple(Replicate() if p == Shard(2) else p for p in pl)
         qk_grad = tuple(Partial() if p == Shard(2) else p for p in pl)
-    want = (qk, qk, pl, pl)
-    args = [laid_out(t, v, w) for t, w in zip((q, k, v, log_a), want)]
-
-    def local(a, b, c, d):
-        if torch.is_grad_enabled():
-            a, b, c = (ContiguousGrad.apply(t) for t in (a, b, c))
-        return ssm_scan(a, b, c, d, chunk=chunk)
-
-    return local_map(local, out_placements=list(pl), in_placements=want,
-                     in_grad_placements=(qk_grad, qk_grad, pl, pl),
-                     device_mesh=v.device_mesh)(*args)
+    return per_shard(lambda *t: ssm_scan(*t, chunk=chunk),
+                     (q, k, v, log_a), (qk, qk, pl, pl), list(pl),
+                     (qk_grad, qk_grad, pl, pl))
 
 
 def kernel_scan(q, k, v, log_a, out_dtype=None):

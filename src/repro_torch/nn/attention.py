@@ -5,7 +5,7 @@ score+softmax+value contraction of a causal prefill (``impl="flash"``).
 
 Attention is independent per head, so on DTensors (tensor-parallel, q, k
 and v sharded on the head dim, the batch on the data axes) ``sdpa`` and
-``decode_attend`` run on each rank's local heads through ``local_map``:
+``decode_attend`` run on each rank's local heads (``layers.per_shard``):
 the kernel, whose ``ctypes`` launch cannot take a DTensor, sees plain
 tensors of the rank's H/model q heads and KV/model kv heads.  Heads that
 do not divide the model axis replicate; a decode cache whose sequence is
@@ -16,9 +16,9 @@ from __future__ import annotations
 import torch
 import torch.distributed._functional_collectives as fc
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.nn.layers import ContiguousGrad, gather_dim, grad_as_forward
+from repro_torch.nn.layers import (gather_dim, grad_as_forward, per_shard,
+                                   summed)
 
 NEG = -1e30
 
@@ -95,22 +95,15 @@ def _head_matched(q, k):
 
 
 def _per_head(fn, q, k, v, **kw):
-    """``fn(q, k, v, **kw)`` on each rank's local heads and rows; the output
-    takes q's placements."""
+    """``fn(q, k, v, **kw)`` on each rank's local heads and rows (a partial
+    sum, such as the cross-attention K/V of a row-parallel encoder output,
+    is summed first); the output takes q's placements."""
     q = _head_matched(q, k)
     kw = {n: (x.to_local() if isinstance(x, DTensor) else x)
           for n, x in kw.items()}
-
-    def local(a, b, c):
-        if torch.is_grad_enabled():
-            a, b, c = (ContiguousGrad.apply(t) for t in (a, b, c))
-        return fn(a, b, c, **kw)
-
-    return local_map(local,
-                     out_placements=list(q.placements),
-                     in_placements=(q.placements, k.placements,
-                                    v.placements),
-                     device_mesh=q.device_mesh)(q, k, v)
+    pl = [summed(t.placements) for t in (q, k, v)]
+    return per_shard(lambda a, b, c: fn(a, b, c, **kw), (q, k, v), pl,
+                     list(pl[0]))
 
 
 def sdpa_chunked(q, k, v, *, causal=True, window=0, q_offset=0,

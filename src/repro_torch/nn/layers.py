@@ -166,9 +166,9 @@ def embed(tokens, table):
 
 class ContiguousGrad(torch.autograd.Function):
     """The identity, whose backward hands on a contiguous gradient: local
-    gradients leave ``local_map`` (attention's q, k and v, the scan's) into
-    the DTensor reshape of the heads, whose backward is a ``view`` of the
-    local shard."""
+    gradients leave ``local_map`` (``per_shard``: attention's q, k and v,
+    the scan's) into the DTensor reshape of the heads, whose backward is a
+    ``view`` of the local shard."""
 
     @staticmethod
     def forward(ctx, x):
@@ -177,6 +177,36 @@ class ContiguousGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.contiguous()
+
+
+def summed(placements) -> tuple:
+    """``placements`` with each partial sum replaced by ``Replicate()``."""
+    return tuple(Replicate() if isinstance(p, Partial) else p
+                 for p in placements)
+
+
+def per_shard(fn, args, placements, out_placements, grad_placements=None):
+    """``fn`` on each rank's local shards through ``local_map``.  ``args``
+    (DTensors, or plain tensors, replicated on the first DTensor's mesh)
+    are laid out in ``placements`` first, so no partial sum reaches
+    ``fn``, which need not be linear.  The local gradients of the inputs
+    leave contiguous (``ContiguousGrad``).  The output takes
+    ``out_placements``, the inputs' gradients ``grad_placements`` (default
+    ``placements``)."""
+    x = next(t for t in args if isinstance(t, DTensor))
+    placements = tuple(tuple(pl) for pl in placements)
+    args = [laid_out(t, x, pl) for t, pl in zip(args, placements)]
+
+    def local(*ts):
+        if torch.is_grad_enabled():
+            ts = [ContiguousGrad.apply(t) if t.is_floating_point() else t
+                  for t in ts]
+        return fn(*ts)
+
+    return local_map(local, out_placements=out_placements,
+                     in_placements=placements,
+                     in_grad_placements=grad_placements,
+                     device_mesh=x.device_mesh)(*args)
 
 
 class _GradAsForward(torch.autograd.Function):
@@ -344,10 +374,8 @@ def _route(probs, top_k: int, e: int, dtype):
     if isinstance(probs, DTensor):
         rows = [pl if pl == Shard(0) else Replicate()
                 for pl in probs.placements]
-        return local_map(lambda pr: _route(pr, top_k, e, dtype),
-                         out_placements=(rows, rows), in_placements=(rows,),
-                         device_mesh=probs.device_mesh)(
-            laid_out(probs, probs, rows))
+        return per_shard(lambda pr: _route(pr, top_k, e, dtype), (probs,),
+                         (rows,), (rows, rows))
     vals, idxs = torch.topk(probs, top_k, dim=-1)           # (B,S,k)
     vals = vals / torch.sum(vals, dim=-1, keepdim=True)
     gate = torch.zeros((*probs.shape[:-1], e), dtype=dtype,
@@ -377,7 +405,6 @@ def _experts_per_shard(x, gate, ws, act: str):
     output is a partial sum; the tokens and the gate keep their batch
     shards and are whole elsewhere.  (DTensor's own einsum rules cannot
     flatten a sharded f in every torch release.)"""
-    mesh = x.device_mesh
     f_sharded = [pl == Shard(2) for pl in ws[0].placements]
     rows = tuple(pl if pl == Shard(0) else Replicate() for pl in x.placements)
 
@@ -390,13 +417,9 @@ def _experts_per_shard(x, gate, ws, act: str):
     part = tuple(Partial() if f else r for f, r in zip(f_sharded, rows))
     w_grad = [tuple(Partial() if r == Shard(0) else w
                     for r, w in zip(rows, pl)) for pl in w_pl]
-    args = [laid_out(t, x, pl)
-            for t, pl in zip([x, gate] + ws, [rows, rows] + w_pl)]
-    return local_map(lambda x, g, *w: _experts(x, g, act, *w),
-                     out_placements=list(part),
-                     in_placements=tuple([rows, rows] + w_pl),
-                     in_grad_placements=tuple([part, part] + w_grad),
-                     device_mesh=mesh)(*args)
+    return per_shard(lambda x, g, *w: _experts(x, g, act, *w),
+                     [x, gate] + ws, [rows, rows] + w_pl, list(part),
+                     tuple([part, part] + w_grad))
 
 
 def _load_balance_loss(probs, idxs, n_experts: int):

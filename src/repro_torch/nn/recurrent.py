@@ -15,9 +15,8 @@ from __future__ import annotations
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.nn.layers import laid_out
+from repro_torch.nn.layers import laid_out, per_shard
 
 
 def chunk_for(seq: int, default: int = 128) -> int:
@@ -86,10 +85,14 @@ def linear_step(q, k, v, log_a, state):
     shard (``_placed_step``)."""
     if isinstance(state, DTensor):
         return _placed_step(q, k, v, log_a, state)
+    return _step(q, k, v, log_a, state).to(q.dtype), state
+
+
+def _step(q, k, v, log_a, state):
+    """The fp32 update of plain ``state`` in place; y (B,H,V) in fp32."""
     a = torch.exp(log_a.float())[..., None, None]
     state.mul_(a).add_(torch.einsum("bhk,bhv->bhkv", k.float(), v.float()))
-    y = torch.einsum("bhk,bhkv->bhv", q.float(), state)
-    return y.to(q.dtype), state
+    return torch.einsum("bhk,bhkv->bhv", q.float(), state)
 
 
 # the layout of the operands q and k (B,H,K), v (B,H,V), log_a (B,H) and
@@ -114,13 +117,10 @@ def _placed_step(q, k, v, log_a, state):
     def local(t, j: int):
         return laid_out(t, state, [row[j] for row in lay]).to_local()
 
-    ql, kl, vl, al = local(q, 0), local(k, 0), local(v, 1), local(log_a, 2)
-    st = state.to_local()
-    st.mul_(torch.exp(al.float())[..., None, None]).add_(
-        torch.einsum("bhk,bhv->bhkv", kl.float(), vl.float()))
+    yl = _step(local(q, 0), local(k, 0), local(v, 1), local(log_a, 2),
+               state.to_local())
     shape = (*q.shape[:2], v.shape[-1])
-    y = DTensor.from_local(torch.einsum("bhk,bhkv->bhv", ql.float(), st),
-                           mesh, [row[3] for row in lay], run_check=False,
+    y = DTensor.from_local(yl, mesh, [row[3] for row in lay], run_check=False,
                            shape=shape,
                            stride=(shape[1] * shape[2], shape[2], 1))
     y = y.redistribute(mesh, [Replicate() if isinstance(p, Partial) else p
@@ -175,22 +175,17 @@ def slstm_step(x, p, state):
 
 def _on_rows(fn, n_out: int, gates, r, h, c):
     """``fn(gates, r, h, c)`` (``n_out`` outputs).  Where ``gates`` is a
-    DTensor it runs on each rank's own rows through ``local_map``: the
+    DTensor it runs on each rank's own rows (``layers.per_shard``): the
     gates, the state and the outputs keep their batch shards and are whole
     elsewhere, r is whole, so each rank runs the recurrence of its rows in
     full, as one card does, with no collective inside the loop.  r's
     gradient is a partial sum over the mesh dims that shard the rows."""
     if not isinstance(gates, DTensor):
         return fn(gates, r, h, c)
-    mesh = gates.device_mesh
     rows = tuple(p if p == Shard(0) else Replicate()
                  for p in gates.placements)
-    whole = (Replicate(),) * mesh.ndim
-    args = [laid_out(t, gates, pl) for t, pl in
-            zip((gates, r, h, c), (rows, whole, rows, rows))]
+    whole = (Replicate(),) * gates.device_mesh.ndim
     r_grad = tuple(Partial() if p == Shard(0) else p for p in rows)
-    return local_map(fn, out_placements=list(rows) if n_out == 1 else
-                     (list(rows),) * n_out,
-                     in_placements=(rows, whole, rows, rows),
-                     in_grad_placements=(rows, r_grad, rows, rows),
-                     device_mesh=mesh)(*args)
+    return per_shard(fn, (gates, r, h, c), (rows, whole, rows, rows),
+                     list(rows) if n_out == 1 else (list(rows),) * n_out,
+                     (rows, r_grad, rows, rows))

@@ -7,7 +7,8 @@ embeddings and M-RoPE, Seamless with encoder frames) within 1e-4 of the
 unsharded port and of the JAX package's prefill, the serve loop's tokens
 on a ``cache_specs``-placed cache equal to the unsharded loop's, and one
 (2, 2) ``grad_sync="late"`` step within the reference's tolerances of the
-unsharded step.  Each family's two rank groups run once (module-scoped
+unsharded step over the same microbatches, every gradient leaf within
+1e-4 of its largest value.  Each family's two rank groups run once (module-scoped
 fixtures), beside the reference.
 """
 import pytest

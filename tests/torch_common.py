@@ -182,8 +182,20 @@ ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
 # sharded step against the unsharded one, and its params
 MESH_LOSS_TOL = 5e-3
 MESH_PARAM_RTOL, MESH_PARAM_ATOL = 5e-3, 5e-4
+# the sharded step's gradients against the unsharded step's, each leaf
+# relative to its largest |g|: the first step's learning rate (3e-6, in
+# warm-up) moves no param past the params' tolerance, so only the
+# gradients can show a wrong sharded layout (a partial sum left unsummed,
+# a shard counted twice, a gradient of the wrong sign)
+MESH_GRAD_REL_TOL = 1e-4
 FP32_LOGITS_TOL = 1e-4      # TP = 2 fp32 prefill against unsharded and JAX
 MESH_GRAD_ACCUM = 2
+# the (2, 2) late step's data ranks: each splits its own rows into
+# MESH_GRAD_ACCUM microbatches, so the unsharded step it is held against
+# takes MESH_GRAD_ACCUM x MESH_DATA_RANKS microbatches of the same rows
+# (Mixtral's load-balancing loss is a function of each microbatch as a
+# whole, not a mean over its rows)
+MESH_DATA_RANKS = 2
 
 
 def tree_paths(tree, prefix="") -> dict:
@@ -259,8 +271,8 @@ def family_batches(cfg, seed: int = 0):
 
 def family_mesh_run(arch: str, d) -> dict:
     """One family at smoke size (fp32): the JAX package's weights and
-    prefill, the unsharded port's prefill, serve loop and late-sync step
-    (``grad_accum=2``) on the same inputs, then the port's TP = 2 prefill
+    prefill, the unsharded port's prefill, serve loop and train step
+    (over the late step's microbatches) on the same inputs, then the port's TP = 2 prefill
     and serve loop on (1, 2) gloo CPU ranks and its (2, 2) late step on
     four (``tests/torch_ranks.py``)."""
     import jax.numpy as jnp
@@ -296,15 +308,19 @@ def family_mesh_run(arch: str, d) -> dict:
                                "cpu")["tokens"]
     state = {"params": params, "opt": init_moments(params, AdamWConfig())}
     new, m = ttrain.make_train_step(family_cfg(arch, flash=False),
-                                    grad_accum=MESH_GRAD_ACCUM)(
+                                    grad_accum=MESH_GRAD_ACCUM
+                                    * MESH_DATA_RANKS)(
         state, {k: torch.from_numpy(v) for k, v in train.items()})
     return {"cfg": cfg, "jax": want, "plain": plain, "tokens": tokens,
             "loss": float(m["loss"]),
-            "params": tree_paths({k: (v.numpy() if torch.is_tensor(v) else
-                                      {kk: vv.numpy() for kk, vv in
-                                       v.items()})
-                                  for k, v in new["params"].items()}),
+            "params": tree_paths(_numpy(new["params"])),
+            "grads": tree_paths(_numpy(m["grads"])),
             **{k: wait() for k, wait in ranks.items()}}
+
+
+def _numpy(tree: dict) -> dict:
+    return {k: (_numpy(v) if isinstance(v, dict) else v.detach().numpy())
+            for k, v in tree.items()}
 
 
 def check_family_serve(run: dict) -> None:
@@ -320,11 +336,18 @@ def check_family_serve(run: dict) -> None:
 
 
 def check_family_train(run: dict) -> None:
-    """The (2, 2) late-sync step against the unsharded step, at the
-    reference's tolerances."""
+    """The (2, 2) late-sync step against the unsharded step: its loss and
+    params at the reference's tolerances, each gradient leaf within
+    ``MESH_GRAD_REL_TOL`` of its largest |g|."""
     r = run["train"]
-    assert r["grads_finite"]
     assert abs(r["loss"] - run["loss"]) < MESH_LOSS_TOL
+    grads = tree_paths(r["grads"])
+    assert grads.keys() == run["grads"].keys()
+    for k, want in run["grads"].items():
+        assert np.isfinite(grads[k]).all(), k
+        tol = MESH_GRAD_REL_TOL * np.abs(want).max()
+        assert np.abs(grads[k] - want).max() <= tol, (
+            k, np.abs(grads[k] - want).max(), tol)
     got = tree_paths(r["params"])
     assert got.keys() == run["params"].keys()
     for k, want in run["params"].items():
