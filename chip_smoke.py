@@ -139,23 +139,24 @@ Phases (any failure raises and the script exits non-zero):
     ``api.init_cache``'s 4096-frame cross cache); at full width and 2+2
     layers in fp32, teacher-forced ``decode_step`` from a cache filled from
     ``encode``'s output against the prefill at 1e-3.
-11. The scan's backward on the card (TF32 off): every route (bf16 on the
-    tensor cores, fp32 and fp16) through ``ScanFunction`` at xLSTM-1.3B's
-    and Zamba2-1.2B's shapes at a 2x2048 training microbatch (Zamba2's q
-    and k broadcast with stride 0), a ragged S=200 and K != V: fp32
-    gradients against autograd through ``chunked_linear_scan`` at
-    ``BW_FP32_TOL``, bf16 and fp16 no farther from the fp32 ones than 1.25
-    times plain autograd in the same dtype; 4 launches and 1 backward call
-    each, no plain call; beside them, the bf16 route with dq and dk
-    rounded to bf16 before the d log_a reduction, its d log_a distance
-    logged against plain autograd's (no check); the kernels' gradient of
-    the leaves timed at both model shapes beside the plain autograd
-    backward and the function's bound.
+11. The scan's backward on the card (TF32 off): the kernels of
+    ``ssm_scan_bw.cu`` on every route (bf16 on the tensor cores, fp32 and
+    fp16) through ``ScanFunction`` at every ``BW_CASES`` shape (xLSTM-1.3B's
+    and Zamba2-1.2B's at a 2x2048 training microbatch, Zamba2's q and k
+    broadcast with stride 0; a rank's shapes of the TP = 2 prefills; a
+    ragged S=200 and K != V): fp32 gradients against autograd through
+    ``chunked_linear_scan`` and against ``ops.plain_backward`` (the same
+    passes in plain torch) at ``BW_FP32_TOL``; bf16 and fp16 no farther from
+    the fp32 ones than 1.25 times plain autograd and 1.25 times
+    ``plain_backward`` in the same dtype; each call 1 forward launch and 1
+    backward launch, no plain call; the kernels' gradient of the leaves
+    timed at both model shapes beside ``kernel_backward`` alone, the plain
+    autograd backward and the function's bound.
 12. Training at full width: (a) Zamba2-1.2B, all 38 layers, bf16 params and
     moments, fp32 gradient buffers, ``make_train_step`` with
     ``grad_accum=2`` on ``SyntheticLM`` batches of 4x2048 for 8 steps
-    (each step 380 scan launches and 76 backward calls: forward, remat
-    recompute and three backward scans per layer and microbatch; no plain
+    (each step 152 scan launches and 76 backward launches: a forward,
+    its remat recompute and a backward per layer and microbatch; no plain
     call), every loss finite, every gradient leaf finite and nonzero and
     each Mamba2 layer's ``w_in``, ``w_out``, ``w_bcdt`` and ``a_log``
     gradient nonzero, an async checkpoint at step 4 restored onto a
@@ -166,8 +167,8 @@ Phases (any failure raises and the script exits non-zero):
     block in fp32, one train step through the kernels against the same
     step with the plain scan under autograd, gradients and updated params
     at ``STEP_FP32_TOL``; (d) xLSTM-1.3B, all 48 layers (42 mLSTM, 6
-    sLSTM), bf16, 2 steps on 2x2048 (each 210 scan launches and 42
-    backward calls, no plain call), every loss finite, every gradient leaf
+    sLSTM), bf16, 2 steps on 2x2048 (each 84 scan launches and 42
+    backward launches, no plain call), every loss finite, every gradient leaf
     finite and nonzero, each mLSTM layer's ``w_up``, ``w_qkg`` and
     ``w_down`` gradient nonzero.
 
@@ -215,7 +216,7 @@ Phases (any failure raises and the script exits non-zero):
     its logits at every 8th position no farther from the fp32 prefill than
     1.25 times the unsharded bf16 prefill's; (i) one (2, 2)
     ``grad_sync="late"`` step (4x2048, ``grad_accum=2``) of Zamba2 at 6
-    layers (60 scan launches and 12 backward calls a rank), Mixtral at 1
+    layers (24 scan launches and 12 backward launches a rank), Mixtral at 1
     and Qwen2-VL at 4: losses finite, every gradient leaf finite and
     nonzero.
 
@@ -286,6 +287,7 @@ CONV_BLOCKS = [
 EXTREME_SHIFTS = (1, 31, 32, 33, 40)
 SCAN_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:49"
 SCAN_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
+SCAN_BW_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bw.cu"
 # (b, s, h, k, v, q and k broadcast over the heads) of the scan checks
 XLSTM_SCAN = (4, 2048, 4, 1024, 1024, False)
 ZAMBA_SCAN = (4, 2048, 32, 64, 128, True)
@@ -367,7 +369,9 @@ TENSOR_CORE_KERNELS = [
     ("conv_fused", "horizontal_mma_kernel", "IMMA"),
     ("flash_attention", "flash_wgmma_kernel", "HGMMA"),
     ("ssm_scan", "scan_intra_kernel", "HMMA"),
-    ("ssm_scan", "scan_state_kernel", "HMMA")]
+    ("ssm_scan", "scan_state_kernel", "HMMA"),
+    ("ssm_scan_bw", "scan_intra_kernel", "HMMA"),
+    ("ssm_scan_bw", "scan_state_kernel", "HMMA")]
 
 
 def check_tensor_cores(sass: dict) -> None:
@@ -791,6 +795,21 @@ def profile_device(fn, n: int, trace_name: str) -> dict:
             "device_launches_by_kernel": launches,
             "device_ms_per_call_by_kernel_name": ms_by_base,
             "trace_launches_without_kernel": lost}
+
+
+def kernel_means(path: str) -> dict:
+    """Per kernel (its name with template arguments) of a trace saved by
+    ``profile_device``: the mean device ms of its events and their count.
+    A mean stays right where the trace lacks some of a kernel's events."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    durs: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            durs.setdefault(e["name"].split("(")[0], []).append(e["dur"])
+    return {name: {"mean_ms": sum(d) / len(d) / 1e3, "events": len(d)}
+            for name, d in durs.items()}
 
 
 def kernel_name(event: str) -> str:
@@ -2403,80 +2422,119 @@ def bw_work(case, elem_bytes: int) -> tuple[int, int]:
 
 
 def bw_impl_work(case, elem_bytes: int) -> tuple[int, int]:
-    """(bytes, FLOPs) of the backward as ``scan_backward`` does it, for
-    comparison with ``bw_work``: three scans (each at ``scan_work``, with
-    every operand per head: the reversed ones are copies) and the fp32
-    reduction, which reads q, dq, k and dk once and writes d log_a."""
-    b, s, h, dk, dv, _ = case
-    scan_b, scan_f = scan_work((b, s, h, dk, dv, False), elem_bytes)
-    red_b = 4 * elem_bytes * b * s * h * dk + 4 * b * s * h
-    return 3 * scan_b + red_b, 3 * scan_f + 4 * b * s * h * dk
-
-
-def rounded_dqdk(q, k, v, log_a, out_dtype=None):
-    """``kernel_scan`` whose dq and dk come rounded to the inputs' dtype
-    (then widened to ``out_dtype``): the backward as it would be without
-    the bf16 route's fp32 outputs."""
+    """(bytes, FLOPs) of the bf16 backward as ``kernel_backward``'s kernels
+    issue them, for comparison with ``bw_work`` (the function's least
+    work).  Operands count per head as the kernels read them (a one-head q
+    or k at stride 0 too: its repeats may come from L2), once per column
+    slab for the X and Z of a state pass and once in all for its W.  The
+    two intra kernels read (q, k), (dy, v) and log_a and write P and D
+    (bf16 hi and lo, 16 KB a (head, chunk)) and the coefficients; the dq, dv and dk
+    passes read D, P, D once per slab; dq and dk write their row dots, and
+    the d log_a kernel reads them.  FLOPs: the tensor cores' products,
+    the hi/lo halves counted (``ssm_scan_bw.cu``'s note): a pass contracting
+    Kc into Vo columns does 8 Kc Vo per step (the state's term and its
+    update) plus its intra product, 2.5 Vo T per step with T = 64 (10 of 16
+    blocks below the diagonal, two halves); an intra kernel 1.25 Kc T per
+    step."""
     from repro_torch.kernels.ssm_scan import ops as scan
 
-    y = scan.kernel_scan(q, k, v, log_a)
-    return y if out_dtype is None else y.to(out_dtype)
+    b, s, h, dk, dv, _ = case
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    vts = scan.bw_slabs(b, h, dk, dv, n_sm, torch.bfloat16)
+    e, T = elem_bytes, scan.CHUNK
+    rows = b * s * h
+    recs = b * h * -(-s // T)
+    scratch = recs * T * T * 4          # one P or D: hi and lo halves
+    coef = recs * scan.COEF * 4
+    nbytes = (2 * rows * (dk + dv) * e + 2 * 4 * rows    # intra kernels
+              + 2 * scratch + coef)
+    flops = 1.25 * rows * T * (dk + dv)
+    for kc, vo, vt, dots in ((dv, dk, vts[0], True), (dk, dv, vts[1], False),
+                             (dv, dk, vts[2], True)):
+        slabs = -(-vo // vt)
+        nbytes += (slabs * (2 * rows * kc * e + scratch + coef)
+                   + 2 * rows * vo * e)                # W in, out
+        if dots:
+            nbytes += rows * vo * e + 4 * rows * slabs  # R in, dots out
+        flops += 8 * rows * kc * vo + 2.5 * rows * vo * T
+    parts = -(-dk // vts[0]) + -(-dk // vts[2])
+    nbytes += 4 * rows * parts + 4 * rows                # d log_a kernel
+    return int(nbytes), int(flops)
+
+
+def _leaf_grads(grads, case):
+    """``plain_backward``'s (dq, dk, dv, d log_a) as the leaves' gradients:
+    dq and dk summed over the heads where the case broadcasts q and k."""
+    dq, dk, dv, dla = grads
+    if case[5]:
+        dq, dk = dq.sum(2, keepdim=True), dk.sum(2, keepdim=True)
+    return dq, dk, dv, dla
 
 
 def scan_backward_phase(dev) -> dict:
-    """The scan's backward on the card (phase 11): every route against
-    plain autograd, then the bf16 route timed at both model shapes."""
+    """The scan's backward on the card (phase 11): every route's kernels
+    against plain autograd and ``plain_backward``, then the bf16 route
+    timed at both model shapes."""
     from repro_torch.kernels.ssm_scan import ops as scan
     from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = {}
+
+    def passes(dtype, case, seed):
+        leaves_, (q, k), dy = bw_inputs(case, dtype, dev, seed)
+        with torch.no_grad():
+            return _leaf_grads(scan.plain_backward(
+                q, k, leaves_[2], leaves_[3], dy), case)
+
     for i, (name, case) in enumerate(BW_CASES.items()):
         want = scan_grads(case, torch.float32, dev, SEED + i, plain=True)
         reset_all_counts()
         got = scan_grads(case, torch.float32, dev, SEED + i, plain=False)
         launches, plain = all_counts()
         if launches["ssm_scan_backward"] != 1 or \
-                launches["ssm_scan"] != 4 or any(plain.values()):
+                launches["ssm_scan"] != 1 or any(plain.values()):
             raise AssertionError(f"scan backward {name}: launches "
                                  f"{launches}, plain calls {plain}")
+        p32 = passes(torch.float32, case, SEED + i)
         rel = {g: grad_rel_err(a, w) for g, a, w in zip(GRAD_NAMES, got,
                                                         want)}
-        errs[f"{name} float32"] = rel
-        if not all(e <= BW_FP32_TOL for e in rel.values()) or not all(
+        rel_p = {g: grad_rel_err(a, w) for g, a, w in zip(GRAD_NAMES, got,
+                                                          p32)}
+        errs[f"{name} float32"] = {
+            "vs_autograd": rel, "vs_passes": rel_p,
+            "max_abs": max(float((a - w).abs().max())
+                           for a, w in zip(got, want))}
+        if not all(e <= BW_FP32_TOL for e in (*rel.values(),
+                                              *rel_p.values())) or not all(
                 bool(torch.isfinite(a).all()) for a in got):
-            raise AssertionError(f"scan backward {name} fp32: {rel} > "
+            raise AssertionError(f"scan backward {name} fp32: {rel}, "
+                                 f"against plain_backward {rel_p} > "
                                  f"{BW_FP32_TOL}")
+        del p32
         for dtype in (torch.bfloat16, torch.float16):
             kern = scan_grads(case, dtype, dev, SEED + i, plain=False)
             ref = scan_grads(case, dtype, dev, SEED + i, plain=True)
-            e_k = {g: grad_rel_err(a, w) for g, a, w in zip(GRAD_NAMES, kern,
-                                                            want)}
-            e_p = {g: grad_rel_err(a, w) for g, a, w in zip(GRAD_NAMES, ref,
-                                                            want)}
-            errs[f"{name} {str(dtype)[6:]}"] = {"kernel": e_k, "plain": e_p}
+            same = passes(dtype, case, SEED + i)
+            e_k, e_p, e_s = ({g: grad_rel_err(a, w) for g, a, w in
+                              zip(GRAD_NAMES, x, want)}
+                             for x in (kern, ref, same))
+            errs[f"{name} {str(dtype)[6:]}"] = {"kernel": e_k, "plain": e_p,
+                                               "plain_backward": e_s}
             bad = [g for g in GRAD_NAMES
-                   if not e_k[g] <= BW_VS_PLAIN * e_p[g]]
+                   if not e_k[g] <= BW_VS_PLAIN * min(e_p[g], e_s[g])]
             if bad or not all(bool(torch.isfinite(a).all()) for a in kern):
                 raise AssertionError(
                     f"scan backward {name} {dtype}: {bad} farther from fp32 "
-                    f"than {BW_VS_PLAIN} x plain autograd's: kernel {e_k}, "
-                    f"plain {e_p}")
-            if dtype == torch.bfloat16:
-                dla = scan_grads(case, dtype, dev, SEED + i, plain=False,
-                                 scan_fn=rounded_dqdk)[3]
-                e_r = grad_rel_err(dla, want[3])
-                errs[f"{name} bfloat16"]["dlog_a with bf16 dq, dk"] = {
-                    "err": e_r, "vs_plain": e_r / e_p["dlog_a"],
-                    "vs_kernel": e_r / e_k["dlog_a"]}
-                del dla
-            del kern, ref
+                    f"than {BW_VS_PLAIN} x plain autograd's or "
+                    f"plain_backward's: kernel {e_k}, plain {e_p}, "
+                    f"plain_backward {e_s}")
+            del kern, ref, same
         del want, got
-    log("ssm_scan backward == plain autograd on the card (fp32 within "
-        f"{BW_FP32_TOL} row-relative; bf16 and fp16 against the fp32 "
-        f"gradients, kernel beside plain autograd in the same dtype; for "
-        f"bf16 also d log_a from dq, dk rounded to bf16, unchecked): "
-        + json.dumps(errs))
+    log("ssm_scan backward kernels == plain autograd and plain_backward on "
+        f"the card (fp32 within {BW_FP32_TOL} row-relative; bf16 and fp16 "
+        f"against the fp32 gradients, kernel beside plain autograd and "
+        f"plain_backward in the same dtype): " + json.dumps(errs))
 
     out = {"errors": errs}
     for arch, case in (("xlstm-1.3b", BW_CASES["xlstm train"]),
@@ -2486,6 +2544,12 @@ def scan_backward_phase(dev) -> dict:
         y = scan.ssm_scan(q, k, v, la, chunk=chunk_for(case[1]))
         ms = device_ms(lambda: torch.autograd.grad(
             y, leaves_, dy, retain_graph=True), reps=5)
+        with torch.no_grad():
+            kernel_ms = device_ms(lambda: scan.kernel_backward(
+                q, k, v, la, dy), reps=5)
+            trace = f"scan_backward_{arch}_trace.json"
+            profile_device(lambda: scan.kernel_backward(q, k, v, la, dy), 5,
+                           trace)
         y = chunked_linear_scan(q, k, v, la, chunk=chunk_for(case[1]))[0]
         plain_ms = device_ms(lambda: torch.autograd.grad(
             y, leaves_, dy, retain_graph=True), reps=3)
@@ -2493,17 +2557,20 @@ def scan_backward_phase(dev) -> dict:
         nbytes, flops = bw_work(case, 2)
         impl_bytes, impl_flops = bw_impl_work(case, 2)
         t_bytes, t_ops = 1e3 * nbytes / MEM_BW, 1e3 * flops / BF16_PEAK
-        rec = {"ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
+        rec = {"ms": ms, "kernel_backward_ms": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "flops": flops, "library_ms": None,
-               "impl_bytes": impl_bytes, "impl_flops": impl_flops}
+               "impl_bytes": impl_bytes, "impl_flops": impl_flops,
+               "kernels_ms": kernel_means(os.path.join(OUT, trace))}
         out[arch] = rec
         log(f"ssm_scan backward at {arch}'s training shape {case[:5]}, bf16 "
-            f"(the gradient of q0, k0, v, log_a through ScanFunction: three "
-            f"kernel scans + the d log_a reduction; bound: the function's "
-            f"least work; impl_*: the three scans' and the reduction's): "
-            + json.dumps(rec))
+            f"(ms: the gradient of q0, k0, v, log_a through ScanFunction, "
+            f"the head sum included; kernel_backward_ms: its kernels alone; "
+            f"kernels_ms: each kernel's mean device ms and event count in "
+            f"a trace of 5 calls (scan_intra_kernel runs twice a call); "
+            f"bound: the function's least work; impl_*: what the kernels "
+            f"move and compute): " + json.dumps(rec))
         del leaves_, q, k, dy
     torch.cuda.empty_cache()
     return out
@@ -2569,8 +2636,9 @@ def zamba_training(dev, card: str) -> dict:
                        d_model=cfg.d_model, device=dev)
     step_fn = train.make_train_step(cfg, grad_accum=TRAIN_ACCUM)
     n_mamba = cfg.n_layers
+    # a forward, its remat recompute and a backward per layer and microbatch
     per_step = {"ssm_scan_backward": n_mamba * TRAIN_ACCUM,
-                "ssm_scan": 5 * n_mamba * TRAIN_ACCUM}
+                "ssm_scan": 2 * n_mamba * TRAIN_ACCUM}
     losses, step_s, counts, batches = [], [], None, {}
     with tempfile.TemporaryDirectory() as tmp:
         store = CheckpointStore(tmp)
@@ -2702,7 +2770,7 @@ def xlstm_training(dev, card: str) -> dict:
     cfg = configs.get(XLSTM)
     B, S, steps = XLSTM_TRAIN
     n_mlstm = xlstm._counts(cfg)[1]
-    per_step = {"ssm_scan_backward": n_mlstm, "ssm_scan": 5 * n_mlstm}
+    per_step = {"ssm_scan_backward": n_mlstm, "ssm_scan": 2 * n_mlstm}
     torch.cuda.reset_peak_memory_stats(dev)
     state = train.init_state(cfg, generator=torch.Generator(
         device=dev).manual_seed(SEED), device=dev)
@@ -2852,9 +2920,9 @@ def _spy_kernels() -> dict:
         seen["flash"].append((tuple(q.shape), tuple(k.shape)))
         return flash_call(q, k, v, **kw)
 
-    def spy_scan(q, k, v, log_a, vt, out_dtype=None):
+    def spy_scan(q, k, v, log_a, vt):
         seen["scan"].append((tuple(q.shape), tuple(v.shape), q.stride(2)))
-        return scan_launch(q, k, v, log_a, vt, out_dtype)
+        return scan_launch(q, k, v, log_a, vt)
 
     flash.flash_attention, scan.launch = spy_flash, spy_scan
     return seen
@@ -3686,11 +3754,12 @@ def family_mesh_checks(refs, served, trained, card: str) -> dict:
             if arch == "zamba2-1.2b":
                 n = fields["n_layers"] * MESH_TRAIN_BATCH[2]
                 if (t["scan_launches"], t["scan_backward_calls"]) != (
-                        5 * n, n):
+                        2 * n, n):
                     raise AssertionError(f"13i {arch} rank {r}: scan "
                                          f"{t['scan_launches']} launches, "
                                          f"{t['scan_backward_calls']} "
-                                         f"backward calls, want {5 * n}, {n}")
+                                         f"backward launches, want "
+                                         f"{2 * n}, {n}")
         t = trained[0][arch]
         log(f"phase 13i, {arch} {fields} on (2, 2), late sync, "
             f"grad_accum={MESH_TRAIN_BATCH[2]} ({SHARED}, {card}): loss "
@@ -3874,6 +3943,7 @@ def main() -> int:
     check_tensor_cores(sass)
     for mod in _kernel_ops():
         mod.library()
+    _kernel_ops()[2].bw_library()
     t_start = time.perf_counter()
     t0 = time.perf_counter()
     models = {name: prepare_model(name, dev)
@@ -3907,6 +3977,17 @@ def main() -> int:
         + json.dumps(seamless))
     scan_bw = scan_backward_phase(dev)
     training = training_phase(dev, card)
+    zt = training["zamba2"]
+    span = zt["train_step_profile"].get("device_span_ms_per_call")
+    # the backward's kernels at the step's microbatch shape, times its
+    # launches a step, over the profiled step's device span
+    zt["scan_backward_share_of_step"] = (
+        zt["launches_per_step"]["ssm_scan_backward"]
+        * scan_bw["zamba2-1.2b"]["kernel_backward_ms"] / span
+        if span else "not measured")
+    log(f"{ZAMBA} train step: the scan backward's kernels take "
+        f"{zt['scan_backward_share_of_step']} of the step's device span "
+        f"({span} ms)")
     log(f"training on {card}: " + json.dumps(
         {k: v for k, v in training.items() if k != "zamba2"}))
     log(f"phases 2-12 took {time.perf_counter() - t_start:.1f} s")
@@ -4002,27 +4083,47 @@ def main() -> int:
                          "plain_ms": scan_t[arch]["plain_ms"],
                          "bound_ms": scan_t[arch]["bound_ms"]}
                   for arch in recurrent},
-        "backward": {
-            "function": "gradient of (q0, k0, v, log_a) through "
-                        "ScanFunction: scan_backward's three kernel scans + "
-                        "the d log_a reduction (bf16, training microbatch "
-                        "2x2048); bound_ms from the function's least work, "
-                        "impl_bytes/impl_flops the three scans' and the "
-                        "reduction's",
-            "per_train_step": {
-                arch: {"kernel_launches": training[key][
-                           "launches_per_step"]["ssm_scan"],
-                       "backward_calls": training[key][
-                           "launches_per_step"]["ssm_scan_backward"]}
-                for arch, key in ((ZAMBA, "zamba2"), (XLSTM, "xlstm"))},
-            "family_train_per_rank": {
-                arch: [(r[arch]["scan_launches"],
-                        r[arch]["scan_backward_calls"])
-                       for r in mesh["families"]["train"]]
-                for arch in ("zamba2-1.2b",)},
-            "max_rel_err": scan_bw["errors"],
-            **{arch: scan_bw[arch] for arch in ("xlstm-1.3b",
-                                                "zamba2-1.2b")}}})
+    })
+    zb = scan_bw["zamba2-1.2b"]
+    kernels.append({
+        "name": "ssm_scan_backward", "route": "cuda", "source": SCAN_BW_SOURCE,
+        "kernels": ["scan_intra_kernel x 2 (P, D) + scan_state_kernel x 3 "
+                    "(dq forward, dv and dk in reverse) + scan_dla_kernel "
+                    "(bf16, mma.sync with hi/lo splits; the main path)",
+                    "ssm_scan_kernel x 3 + scan_dla_kernel (fp32 and fp16, "
+                    "CUDA cores)"],
+        "replaces": SCAN_REPLACES + " (its backward: the TPU kernel has "
+                                    "none; the reference differentiates "
+                                    "plain jnp)",
+        "launches": training["zamba2"]["launches_per_step"][
+            "ssm_scan_backward"],
+        "launches_of": "one Zamba2-1.2B train step (phase 12a's last)",
+        "max_abs_err": max(e["max_abs"] for n, e in
+                           scan_bw["errors"].items() if "float32" in n),
+        "max_abs_err_of": "fp32 gradients against autograd through "
+                          "chunked_linear_scan, over BW_CASES",
+        "ms": zb["ms"], "plain_ms": zb["plain_ms"],
+        "bound_ms": zb["bound_ms"], "bound_by": zb["bound_by"],
+        "library_ms": None,
+        "function": "gradient of (q0, k0, v, log_a) through ScanFunction "
+                    "(bf16, training microbatch 2x2048; ms at Zamba2-1.2B's "
+                    "shape, both shapes under paths); bound_ms from the "
+                    "function's least work, impl_bytes/impl_flops what the "
+                    "kernels move and compute",
+        "per_train_step": {
+            arch: {"forward_launches": training[key][
+                       "launches_per_step"]["ssm_scan"],
+                   "backward_launches": training[key][
+                       "launches_per_step"]["ssm_scan_backward"]}
+            for arch, key in ((ZAMBA, "zamba2"), (XLSTM, "xlstm"))},
+        "family_train_per_rank": {
+            arch: [(r[arch]["scan_launches"],
+                    r[arch]["scan_backward_calls"])
+                   for r in mesh["families"]["train"]]
+            for arch in ("zamba2-1.2b",)},
+        "max_rel_err": scan_bw["errors"],
+        "paths": {arch: scan_bw[arch] for arch in ("xlstm-1.3b",
+                                                   "zamba2-1.2b")}})
     checked["artifact"] = served["artifact"]
     checked["tune"] = tuned
     checked["serving_plane"] = serving

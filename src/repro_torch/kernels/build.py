@@ -1,12 +1,13 @@
 """Build and load the port's CUDA libraries at first use.
 
 Each library is one ``csrc/*.cu`` source with a plain C interface (no
-PyTorch headers), compiled by
+PyTorch headers; it may include ``*.cuh`` headers beside it), compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/repro_torch/`` at the repository root, or into
 ``$REPRO_TORCH_BUILD_DIR``.  A library's file name carries a hash of its
-source and the flags, so an edited source is rebuilt and a built one is
-reused; a file lock beside it keeps two processes from building it at once.
+source, its headers and the flags, so an edited source is rebuilt and a
+built one is reused; a file lock beside it keeps two processes from
+building it at once.
 Libraries are bound with ``ctypes``: every pointer and the stream travel as
 ``c_void_p``.
 """
@@ -29,6 +30,7 @@ SOURCES = {
     "flash_attention": KERNELS / "flash_attention" / "csrc" /
     "flash_attention.cu",
     "ssm_scan": KERNELS / "ssm_scan" / "csrc" / "ssm_scan.cu",
+    "ssm_scan_bw": KERNELS / "ssm_scan" / "csrc" / "ssm_scan_bw.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -53,8 +55,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's file: its name carries a hash of the source, the
+    headers (``*.cuh``) beside it and the flags."""
+    src = SOURCES[name]
+    text = b"".join(f.read_bytes() for f in
+                    [src, *sorted(src.parent.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return build_dir() / f"{name}_{digest}.so"
 
 

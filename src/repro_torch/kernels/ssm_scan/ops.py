@@ -28,15 +28,21 @@ the wrapper copies only a tensor whose last dimension is not contiguous.
 
 Gradients.  The kernels launch through ``ctypes``, so on the card the
 wrapper runs them inside ``ScanFunction`` (a ``torch.autograd.Function``)
-whose backward is ``scan_backward``: the scan's own recurrence three more
-times, operands swapped (and time reversed for dk and dv), plus one fp32
-reduction for d log_a, so the backward runs on the same kernels.  The
-TPU kernel had no backward (the reference differentiates its scan through
-plain ``jnp``); this one is the port's own.  ``LAUNCHES["ssm_scan"]``
-counts every launch, the backward's three included, and
-``LAUNCHES["ssm_scan_backward"]`` the backward calls on the kernels, each
-counted once its three launches have returned.  On the CPU autograd runs
-through the plain version itself.
+whose backward is ``kernel_backward``: the kernels of
+``csrc/ssm_scan_bw.cu``, written for the backward (the TPU kernel had none;
+the reference differentiates its scan through plain ``jnp``).  One pass
+forward in time gives dq and the row dots u_t = q_t . dq_t, reverse passes
+give dv and dk and w_t = k_t . dk_t, and a last kernel sums d log_a_t =
+sum_{r>=t} (u_r - w_r) in fp32; nothing is flipped or copied, and dq, dk,
+dv are written once in the inputs' dtypes (the design and its bound are in
+the source's note).  It replaced the forward kernels run three more times
+on time-reversed copies with torch glue around them.  ``plain_backward`` is
+the same passes in plain PyTorch, fp32, against which the card holds the
+kernels; ``meta_backward`` gives the dry run shapes.
+``LAUNCHES["ssm_scan"]`` counts the forward's launches and
+``LAUNCHES["ssm_scan_backward"]`` the backward's (one per backward call:
+its two intra-chunk, three state and one d log_a kernels).  On the CPU the
+wrapper's autograd runs through the plain scan itself.
 """
 from __future__ import annotations
 
@@ -93,7 +99,7 @@ def _bind(lib) -> None:
     lib.repro_ssm_scan.restype = ci
     lib.repro_ssm_scan_smem.argtypes = [ctypes.c_int64, ci]
     lib.repro_ssm_scan_smem.restype = ctypes.c_int64
-    lib.repro_ssm_scan_bf16.argtypes = [ci, ci, ci] + [vp] * 9
+    lib.repro_ssm_scan_bf16.argtypes = [ci, ci] + [vp] * 9
     lib.repro_ssm_scan_bf16.restype = ci
     lib.repro_ssm_scan_bf16_smem.argtypes = [ci, ctypes.c_int64]
     lib.repro_ssm_scan_bf16_smem.restype = ctypes.c_int64
@@ -108,6 +114,20 @@ def _bind(lib) -> None:
 def library():
     """The ssm_scan CUDA library, built at first use."""
     return build.library("ssm_scan", _bind)
+
+
+def _bind_bw(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.repro_ssm_scan_bw.argtypes = [ci] + [vp] * 13
+    lib.repro_ssm_scan_bw.restype = ci
+    lib.repro_ssm_scan_bw_bf16.argtypes = [vp, ci] + [vp] * 15
+    lib.repro_ssm_scan_bw_bf16.restype = ci
+
+
+def bw_library():
+    """The backward's CUDA library (``csrc/ssm_scan_bw.cu``), built at first
+    use."""
+    return build.library("ssm_scan_bw", _bind_bw)
 
 
 # ------------------------------------------------------------ plain versions
@@ -238,11 +258,10 @@ def expand_heads(q, k, v):
     return q, k
 
 
-def meta_scan(q, k, v, log_a, out_dtype=None):
+def meta_scan(q, k, v, log_a):
     """The scan's output on the ``meta`` device: its shape and dtype only
-    (the dry run's route; ``ScanFunction`` gives it a backward of meta
-    shapes too)."""
-    return torch.empty(v.shape, dtype=out_dtype or v.dtype, device="meta")
+    (the dry run's route; ``ScanFunction`` gives it ``meta_backward``)."""
+    return torch.empty(v.shape, dtype=v.dtype, device="meta")
 
 
 def _scan_placements(v):
@@ -272,62 +291,161 @@ def _scan_per_head(q, k, v, log_a, chunk: int):
                      (qk_grad, qk_grad, pl, pl))
 
 
-def kernel_scan(q, k, v, log_a, out_dtype=None):
+def kernel_scan(q, k, v, log_a):
     """One launch of ``q.dtype``'s route at the slab width ``slab_width``
-    picks for these shapes; y in ``out_dtype`` (default v's).  float32 y
-    from bf16 inputs comes straight from the bf16 route's accumulators;
-    from fp16 inputs the fp32 route runs on them upcast."""
-    if out_dtype == torch.float32 and q.dtype == torch.float16:
-        q, k, v = q.float(), k.float(), v.float()
+    picks for these shapes; y in v's dtype."""
     b, _, h, dk = q.shape
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    return launch(q, k, v, log_a, slab_width(b, h, dk, v.shape[-1], n_sm,
-                                             q.dtype), out_dtype)
+    return launch(q, k, v, log_a, slab_width(b, h, dk, v.shape[-1], _n_sm(q),
+                                             q.dtype))
+
+
+def _n_sm(t) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 # ----------------------------------------------------------------- backward
-def _flip(t):
-    return torch.flip(t, (1,))
+def _decay(cum):
+    """(B, T, T, H): e^{cum_t - cum_s} for t >= s, else 0 (exp of the
+    masked difference, so nothing overflows)."""
+    n = cum.shape[1]
+    tri = torch.ones((n, n), dtype=torch.bool, device=cum.device).tril()
+    diff = cum[:, :, None] - cum[:, None, :]
+    return torch.where(tri[None, :, :, None], diff, float("-inf")).exp()
 
 
-def scan_backward(q, k, v, log_a, dy, *, scan):
-    """Gradients (dq, dk, dv, d log_a) of ``y = scan(q, k, v, log_a)`` for
-    the upstream gradient ``dy`` (B,S,H,V), by ``scan`` itself (the CUDA
-    route on the card, the plain version in the CPU tests).
+def plain_backward(q, k, v, log_a, dy):
+    """Gradients (dq, dk, dv, d log_a) of ``y = ssm_scan(q, k, v, log_a)``
+    for the upstream gradient ``dy``: the kernels' passes in plain PyTorch,
+    fp32 (inputs upcast), in the kernels' chunks of ``CHUNK`` steps.
 
-    With b_t = sum_{r<=t} log a_r the forward is y_t = sum_{s<=t}
-    e^{b_t - b_s} (q_t . k_s) v_s, so dq is the forward scan with (q, k, v)
-    = (dy, v, k), and dk, dv are scans over reversed time with (q, k, v) =
-    (v, dy, q) and (k, q, dy).  The reversed scan decays by a_{t+1}, not
-    a_t: its log decay is flip(log_a) shifted one step, a zero first.
-    d log_a_t = sum_{r>=t} (q_r . dq_r - k_r . dk_r) in fp32: the pairs
-    (s < t <= r) whose decay spans step t; the diagonal terms cancel
-    exactly, but only if dq and dk are not rounded first: their scans
-    return float32 (``out_dtype``), and they are cast to q's and k's dtype
-    after the reduction.  ``scan(q, k, v, log_a, out_dtype=None)`` is
-    ``kernel_scan`` (the CPU tests pass the plain scan with that
-    signature); d log_a is fp32, dv in v's dtype."""
+    With cum the in-chunk cumsum of log_a, cum_T its last value, and, for
+    t >= s, P[t,s] = (q_t . k_s) e^{cum_t - cum_s} and D[t,s] = (dy_t . v_s)
+    e^{cum_t - cum_s}: (1) forward in time, dq_t = sum_s D[t,s] k_s +
+    e^{cum_t} S dy_t with the forward state S <- e^{cum_T} S + sum_s
+    e^{cum_T - cum_s} k_s v_s^T, and u_t = q_t . dq_t; (2) reverse in time,
+    dk_s = sum_t D[t,s] q_t + e^{cum_T - cum_s} G v_s, dv_s = sum_t P[t,s]
+    dy_t + e^{cum_T - cum_s} G^T k_s with G <- e^{cum_T} G + sum_t e^{cum_t}
+    q_t dy_t^T, and w_t = k_t . dk_t; (3) d log_a_t = sum_{r>=t} (u_r -
+    w_r).  u and w come from the fp32 dq and dk, so their diagonal terms
+    cancel.  dq, dk, dv in q's, k's, v's dtypes; d log_a fp32."""
+    f = torch.float32
+    q32, k32, v32, g32 = (t.to(f) for t in (q, k, v, dy))
+    b, s, h, dk_ = q.shape
+    dq = torch.empty((b, s, h, dk_), dtype=f, device=q.device)
+    dk, dv = torch.empty_like(dq), torch.empty_like(v32)
+    u = torch.empty((b, s, h), dtype=f, device=q.device)
+    w = torch.empty_like(u)
+    spans = [(t0, min(t0 + CHUNK, s)) for t0 in range(0, s, CHUNK)]
+    state = torch.zeros((b, h, dk_, v.shape[-1]), dtype=f, device=q.device)
+    for t0, t1 in spans:                                 # (1) forward
+        qc, kc, vc, gc = (t[:, t0:t1] for t in (q32, k32, v32, g32))
+        cum = torch.cumsum(log_a[:, t0:t1].to(f), 1)
+        tot = cum[:, -1]
+        dmat = torch.einsum("bthv,bshv->btsh", gc, vc) * _decay(cum)
+        dqc = torch.einsum("btsh,bshk->bthk", dmat, kc) + cum.exp()[
+            ..., None] * torch.einsum("bhkv,bthv->bthk", state, gc)
+        dq[:, t0:t1], u[:, t0:t1] = dqc, (qc * dqc).sum(-1)
+        state = tot.exp()[..., None, None] * state + torch.einsum(
+            "bsh,bshk,bshv->bhkv", (tot[:, None] - cum).exp(), kc, vc)
+    state.zero_()
+    for t0, t1 in reversed(spans):                       # (2) reverse
+        qc, kc, vc, gc = (t[:, t0:t1] for t in (q32, k32, v32, g32))
+        cum = torch.cumsum(log_a[:, t0:t1].to(f), 1)
+        tot = cum[:, -1]
+        decay = _decay(cum)
+        wgt = (tot[:, None] - cum).exp()[..., None]
+        pmat = torch.einsum("bthk,bshk->btsh", qc, kc) * decay
+        dmat = torch.einsum("bthv,bshv->btsh", gc, vc) * decay
+        dkc = torch.einsum("btsh,bthk->bshk", dmat, qc) + wgt * torch.einsum(
+            "bhkv,bshv->bshk", state, vc)
+        dv[:, t0:t1] = torch.einsum("btsh,bthv->bshv", pmat, gc) + \
+            wgt * torch.einsum("bhkv,bshk->bshv", state, kc)
+        dk[:, t0:t1], w[:, t0:t1] = dkc, (kc * dkc).sum(-1)
+        state = tot.exp()[..., None, None] * state + torch.einsum(
+            "bth,bthk,bthv->bhkv", cum.exp(), qc, gc)
+    dla = (u - w).flip(1).cumsum(1).flip(1)              # (3) d log_a
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dla
+
+
+def meta_backward(q, k, v, log_a, dy):
+    """``plain_backward``'s outputs on the ``meta`` device: shapes and
+    dtypes only."""
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                 for t in (q, k, v, log_a))
+
+
+def bw_slabs(b: int, h: int, dk: int, dv: int, n_sm: int, dtype) -> tuple:
+    """The slab widths of the backward's dq, dv and dk passes: dq and dk
+    contract over V and slice K, dv contracts over K and slices V."""
+    return (slab_width(b, h, dv, dk, n_sm, dtype),
+            slab_width(b, h, dk, dv, n_sm, dtype),
+            slab_width(b, h, dv, dk, n_sm, dtype))
+
+
+def kernel_backward(q, k, v, log_a, dy):
+    """``plain_backward`` on the card: the kernels of ``csrc/ssm_scan_bw.cu``
+    (one library call; see the module note), counted once per call in
+    ``LAUNCHES["ssm_scan_backward"]``.  q, k (stride 0 over the heads where
+    broadcast), v and dy are read through their strides; dq, dk (B,S,H,K)
+    in q's and k's dtype, dv (B,S,H,V) in v's, d log_a (B,S,H) fp32."""
+    if q.dtype not in ROUTES:
+        raise ValueError(f"ssm_scan backward takes {list(ROUTES)}, not "
+                         f"{q.dtype}")
+    b, s, h, dk_ = q.shape
+    dv_ = v.shape[-1]
     dy = dy.to(v.dtype)
-    f32 = torch.float32
-    dq = scan(dy, v, k, log_a, out_dtype=f32)
-    la_rev = torch.cat([torch.zeros_like(log_a[:, :1]),
-                        _flip(log_a)[:, :-1]], dim=1)
-    dk = _flip(scan(_flip(v), _flip(dy), _flip(q), la_rev, out_dtype=f32))
-    dv = _flip(scan(_flip(k), _flip(q), _flip(dy), la_rev))
-    terms = (torch.einsum("bshk,bshk->bsh", q.float(), dq)
-             - torch.einsum("bshk,bshk->bsh", k.float(), dk))
-    dla = _flip(torch.cumsum(_flip(terms), dim=1))
-    return dq.to(q.dtype), dk.to(k.dtype), dv, dla
+    q, k, v, dy = _rows(q), _rows(k), _rows(v), _rows(dy)
+    dq = torch.empty((b, s, h, dk_), dtype=q.dtype, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty((b, s, h, dv_), dtype=v.dtype, device=q.device)
+    dla = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0 or dv.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_(), dla.zero_()
+    if b * h > 65535:
+        raise ValueError(f"ssm_scan backward: {b * h} (batch, head) pairs > "
+                         f"65535")
+    vts = bw_slabs(b, h, dk_, dv_, _n_sm(q), q.dtype)
+    n_part = -(-dk_ // vts[0]) + -(-dk_ // vts[2])
+    part = torch.empty((n_part, b, h, s), dtype=torch.float32,
+                       device=q.device)
+    dims = np.array([b, s, h, dk_, dv_, *q.stride()[:3], *k.stride()[:3],
+                     *v.stride()[:3], *log_a.stride(), *dy.stride()[:3]],
+                    np.int64)
+    c_vts = (ctypes.c_int * 3)(*vts)
+    ptrs = [ctypes.c_void_p(t.data_ptr())
+            for t in (q, k, v, log_a, dy, dq, dk, dv, dla, part)]
+    lib = bw_library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        n_rec = b * h * -(-s // CHUNK)
+        scratch = [torch.empty((n_rec, CHUNK * CHUNK), dtype=torch.int32,
+                               device=q.device) for _ in range(2)]
+        scratch.append(torch.empty((n_rec, COEF), dtype=torch.float32,
+                                   device=q.device))
+        rc = lib.repro_ssm_scan_bw_bf16(
+            c_vts, ctypes.c_int(int(_vec(q, k, v, dy))), *ptrs,
+            *(ctypes.c_void_p(t.data_ptr()) for t in scratch),
+            dims.ctypes.data_as(ctypes.c_void_p), stream)
+    else:
+        rc = lib.repro_ssm_scan_bw(
+            ctypes.c_int(DTYPES[q.dtype]), c_vts, *ptrs,
+            dims.ctypes.data_as(ctypes.c_void_p), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssm_scan backward launch failed: "
+                           f"{build.error(lib, rc)}")
+    LAUNCHES["ssm_scan_backward"] += 1
+    return dq, dk, dv, dla
 
 
 class ScanFunction(torch.autograd.Function):
-    """``scan(q, k, v, log_a)`` under autograd, its backward
-    ``scan_backward`` by the same ``scan``.  The wrapper passes
-    ``kernel_scan``; a test may pass the plain version."""
+    """``scan(q, k, v, log_a)`` under autograd.  Its backward follows the
+    inputs and the scan: ``meta_backward`` on ``meta`` tensors,
+    ``kernel_backward`` after ``kernel_scan`` (the wrapper's), else
+    ``plain_backward`` (a test's plain scan)."""
 
     @staticmethod
     def forward(ctx, q, k, v, log_a, scan):
-        ctx.scan = scan
+        ctx.on_kernels = scan is kernel_scan
         ctx.save_for_backward(q, k, v, log_a)
         return scan(q, k, v, log_a)
 
@@ -335,10 +453,13 @@ class ScanFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         q, k, v, log_a = ctx.saved_tensors
-        dq, dk, dv, dla = scan_backward(q, k, v, log_a, dy, scan=ctx.scan)
-        if ctx.scan is kernel_scan:          # its three launches returned
-            LAUNCHES["ssm_scan_backward"] += 1
-        return dq, dk, dv, dla, None
+        if q.device.type == "meta":
+            grads = meta_backward(q, k, v, log_a, dy)
+        elif ctx.on_kernels:
+            grads = kernel_backward(q, k, v, log_a, dy)
+        else:
+            grads = plain_backward(q, k, v, log_a, dy)
+        return (*grads, None)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -354,18 +475,12 @@ def _vec(*ts) -> bool:
                and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
 
 
-def launch(q, k, v, log_a, vt: int, out_dtype=None):
+def launch(q, k, v, log_a, vt: int):
     """Launch ``q.dtype``'s route with column slabs of ``vt`` columns of S
     (one of ``slabs(q.dtype, K)``); ``ssm_scan`` picks the width with
-    ``slab_width``.  y has v's dtype, or float32 from the bf16 route where
-    ``out_dtype`` asks for it."""
+    ``slab_width``.  y has v's dtype."""
     if q.dtype not in ROUTES:
         raise ValueError(f"ssm_scan takes {list(ROUTES)}, not {q.dtype}")
-    out_dtype = out_dtype or v.dtype
-    if out_dtype != v.dtype and not (q.dtype == torch.bfloat16
-                                     and out_dtype == torch.float32):
-        raise ValueError(f"ssm_scan: the {q.dtype} route writes y in "
-                         f"{v.dtype}, not {out_dtype}")
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     smem = slab_smem(q.dtype, dk, vt)
@@ -375,7 +490,7 @@ def launch(q, k, v, log_a, vt: int, out_dtype=None):
                          f"memory, at most {MAX_SMEM})")
     if b * h > 65535:
         raise ValueError(f"ssm_scan: {b * h} (batch, head) pairs > 65535")
-    out = torch.empty((b, s, h, dv), dtype=out_dtype, device=v.device)
+    out = torch.empty((b, s, h, dv), dtype=v.dtype, device=v.device)
     if out.numel() == 0 or dk == 0:
         return out.zero_()
     q, k, v = _rows(q), _rows(k), _rows(v)
@@ -391,8 +506,7 @@ def launch(q, k, v, log_a, vt: int, out_dtype=None):
         coef = torch.empty((b * h * n_chunks, COEF), dtype=torch.float32,
                            device=q.device)
         rc = lib.repro_ssm_scan_bf16(
-            ctypes.c_int(vt), ctypes.c_int(int(_vec(q, k, v))),
-            ctypes.c_int(int(out_dtype == torch.float32)), *ptrs,
+            ctypes.c_int(vt), ctypes.c_int(int(_vec(q, k, v))), *ptrs,
             ctypes.c_void_p(pbuf.data_ptr()),
             ctypes.c_void_p(coef.data_ptr()),
             dims.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))

@@ -454,11 +454,11 @@ def test_recurrent_prefill_on_card_matches_cpu(dev, arch):
     (1, 200, 2, 24, 40, False)])
 def test_ssm_scan_gradients_on_card_match_plain_autograd(dev, b, s, h, dk,
                                                          dv, bcast):
-    """fp32: the wrapper's gradients (``ScanFunction``: three kernel scans
-    and the d log_a reduction) against autograd through the plain scan, at
-    1e-3 of each gradient's largest value (the backward chains a scan held
-    at 2e-4 with a reduction whose terms cancel), TF32 off; one backward
-    call counted, no plain call."""
+    """fp32: the wrapper's gradients (``ScanFunction``: the backward's
+    kernels) against autograd through the plain scan, at 1e-3 of each
+    gradient's largest value (each gradient is a scan held at 2e-4; d
+    log_a sums differences whose diagonal terms cancel), TF32 off; one
+    forward and one backward launch counted, no plain call."""
     from repro_torch.kernels.ssm_scan import ops as scan
     from repro_torch.nn.recurrent import chunk_for, chunked_linear_scan
 
@@ -479,12 +479,52 @@ def test_ssm_scan_gradients_on_card_match_plain_autograd(dev, b, s, h, dk,
     got = torch.autograd.grad(scan.ssm_scan(q, k, v, la, chunk=chunk_for(s)),
                               (q0, k0, v, la), dy)
     torch.cuda.synchronize()
-    assert scan.LAUNCHES == {"ssm_scan": 4, "ssm_scan_backward": 1}
+    assert scan.LAUNCHES == {"ssm_scan": 1, "ssm_scan_backward": 1}
     assert scan.PLAIN_CALLS["ssm_scan"] == 0
     for g, w in zip(got, want):
         assert g.shape == w.shape
         err = float((g - w).abs().max() / w.abs().max())
         assert err <= 1e-3, err
+
+
+# chip_smoke.py's BW_CASES: (B, S, H, K, V, q and k one head over H)
+BW_CASES = [(2, 2048, 4, 1024, 1024, False), (2, 2048, 32, 64, 128, True),
+            (4, 200, 4, 64, 96, False), (2, 256, 2, 40, 24, False),
+            (4, 2048, 2, 1024, 1024, False), (4, 2048, 16, 64, 128, True)]
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,bcast", BW_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_backward_kernels_match_plain_backward(dev, b, s, h, dk, dv, bcast,
+                                               dtype):
+    """``kernel_backward`` against ``plain_backward`` on the same inputs
+    (the same passes in fp32 arithmetic): fp32 within 2e-4 of each row's
+    largest value (d log_a: of its largest value); bf16 and fp16 within
+    two units of the output dtype's roundoff (2^-7, 2^-10), as both round
+    the same fp32 values once.  One backward launch, TF32 off."""
+    from repro_torch.kernels.ssm_scan import ops as scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    hq = 1 if bcast else h
+    q, k = (torch.randn((b, s, hq, dk), generator=gen, device=dev)
+            .div_(dk ** 0.5).to(dt).expand(b, s, h, dk) for _ in range(2))
+    v, dy = (torch.randn((b, s, h, dv), generator=gen, device=dev).to(dt)
+             for _ in range(2))
+    la = torch.nn.functional.logsigmoid(torch.randn(
+        (b, s, h), generator=gen, device=dev))
+    want = scan.plain_backward(q, k, v, la, dy)
+    scan.reset_counts()
+    got = scan.kernel_backward(q, k, v, la, dy)
+    torch.cuda.synchronize()
+    assert scan.LAUNCHES == {"ssm_scan": 0, "ssm_scan_backward": 1}
+    tol = scan.OUT_REL_TOL.get(dt, 2e-4)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        err = scan.row_rel_err(g, w) if g.dim() == 4 else float(
+            (g - w).abs().max() / w.abs().max())
+        assert err <= (2e-4 if g.dim() == 3 else tol), err
 
 
 def test_kernels_without_backward_refuse_autograd_on_card(dev):

@@ -21,6 +21,14 @@ in brackets; all by default):
 - [scan] ``ssm_scan`` (bf16) at xLSTM-1.3B's prefill shape (B=4, S=2048, 4
   heads, K=V=1024) and Zamba2-1.2B's (32 heads, K=64, V=128, q and k
   broadcast over the heads): device ms per call;
+- [scan_bw] the scan's backward: ``torch.autograd.grad`` of q, k (one head
+  at stride 0 for Zamba2), v and log_a through ``ssm_scan`` (bf16) at
+  xLSTM-1.3B's and Zamba2-1.2B's training microbatch (B=2, S=2048): device
+  ms per call, the forward outside the timing;
+- [train] Zamba2-1.2B at full width and depth (random bf16 weights from
+  seed 0): ``make_train_step`` with ``grad_accum=2`` on ``SyntheticLM``
+  batches of 4x2048, wall seconds of each of 3 steps after a warm-up
+  step;
 - [recurrent] xLSTM-1.3B and Zamba2-1.2B at full width and depth (random
   bf16 weights from seed 0): the 4x2048 prefill, wall ms and tokens/s of
   each of 3 timed calls after a warm-up;
@@ -51,7 +59,11 @@ GRANITE_PREFILL = (4, 2048, 2048, 32, 8, 128)
 # (b, s, h, k, v, q and k broadcast over the heads) of the scan timings
 SCAN_SHAPES = {"xlstm-1.3b": (4, 2048, 4, 1024, 1024, False),
                "zamba2-1.2b": (4, 2048, 32, 64, 128, True)}
-GROUPS = ("flash", "conv", "scan", "recurrent", "session", "granite")
+# the backward's: a training microbatch of 2 x 2048
+SCAN_BW_SHAPES = {arch: (2,) + shape[1:]
+                  for arch, shape in SCAN_SHAPES.items()}
+GROUPS = ("flash", "conv", "scan", "scan_bw", "train", "recurrent",
+          "session", "granite")
 SEED = 0
 
 
@@ -164,6 +176,49 @@ def worker(groups) -> dict:
             res[f"scan_ms_{arch}"] = device_ms(
                 lambda: scan.ssm_scan(q, k, v, la), reps=5)
             del q, k, v, la
+
+    if "scan_bw" in groups:
+        for arch, (sb, ss, sh, dk, dv, bcast) in SCAN_BW_SHAPES.items():
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            hq = 1 if bcast else sh
+            q0, k0 = ((torch.randn((sb, ss, hq, dk), generator=gen,
+                                   device=dev) / dk ** 0.5).to(
+                torch.bfloat16).requires_grad_(True) for _ in range(2))
+            v, dy = (torch.randn((sb, ss, sh, dv), generator=gen,
+                                 device=dev).to(torch.bfloat16)
+                     for _ in range(2))
+            v.requires_grad_(True)
+            la = torch.nn.functional.logsigmoid(torch.randn(
+                (sb, ss, sh), generator=gen, device=dev)).requires_grad_(True)
+            leaves = (q0, k0, v, la)
+            y = scan.ssm_scan(q0.expand(sb, ss, sh, dk),
+                              k0.expand(sb, ss, sh, dk), v, la)
+            res[f"scan_bw_ms_{arch}"] = device_ms(
+                lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True),
+                reps=5)
+            del q0, k0, v, dy, la, leaves, y
+
+    if "train" in groups:
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.launch import train
+
+        cfg = configs.get("zamba2-1.2b")
+        state = train.init_state(cfg, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        data = SyntheticLM(vocab=cfg.vocab, batch=b, seq=s, family=cfg.family,
+                           d_model=cfg.d_model, device=dev)
+        step = train.make_train_step(cfg, grad_accum=2)
+        walls = []
+        for _ in range(4):
+            batch = data.next()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res["train_step_s_zamba2-1.2b"] = walls[1:]
+        del state, step, data
+        torch.cuda.empty_cache()
 
     if "conv" in groups or "session" in groups:
         g = build("googlenet", img=224)
