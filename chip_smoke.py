@@ -13,7 +13,9 @@ Phases (any failure raises and the script exits non-zero):
    and ResNet50-224 (strategies from ``pathsearch.search(g, ZU2)``, weights
    calibrated on the card), a tile sweep with ragged tiles, hand-built
    chains (avg and ceil-mode pools, negative shifts, dilation, global
-   pooling); ``fused_horizontal`` on all GoogLeNet-224 horizontal launches
+   pooling; chains of 10 and 12 stages whose one-pixel tiles reach past the
+   input, so the card cuts their windows); ``fused_horizontal`` on all
+   GoogLeNet-224 horizontal launches
    at batch 1 (split-K), 2 and 8, and on hand-made ragged launches (M not a
    multiple of the tile, N not a multiple of 8, K not a multiple of 32, a
    split-K case, IC = 3, 3x3 windows at stride 2 with padding).
@@ -129,6 +131,22 @@ Phases (any failure raises and the script exits non-zero):
    poisoned r0 launch retried; the only failed attempts ``ChaosError``s,
    the kernel launches again 42 + 9 per executor launch; the fleet's
    images/s at 1 and 2 replicas (host clock).
+14. Run right after phase 9: the paper's other CNNs and its second FPGA
+    target (``ZOO_PLANS``): VGG16-224 (1,000 classes), ResNet152-224 and
+    YOLO-lite-256 (at 224 its reorg meets a 7x7 map, which the reference
+    cannot split either; 256 lowers the same plans), each planned under ZU2
+    and ZU9, and GoogLeNet-224 and ResNet50-224 under ZU9, at batch 1.  A
+    model is calibrated once on the card (its two plans share the
+    ``QuantizedModel``).  Per plan: every
+    distinct chain launch bit-equal to ``fused_chain_plain`` with its
+    weights packed once, each call launching the kernel (YOLO-lite's
+    10-stage ZU9 chain and VGG16's fc6 chain, c_in 25,088, named in the
+    log); ``validate.bit_exact`` of the compiled session's program against
+    ``ref``; kernel launches and ref-path nodes per image against the
+    ``GroupProgram`` (no plain call); ``Session.run`` p50/p99 over 32 runs
+    and a ``Server(max_batch=8)``'s images/s over 16 requests, each answer
+    equal to ``Session.run`` (host clock); the image's chain launches back
+    to back in CUDA events beside their bound, and VGG16's int8 TOP/s.
 
 10. Seamless-m4t-large-v2 served at full width and depth (24 encoder and
     24 decoder layers, d_model 1024, d_ff 8192, vocab 256206, random bf16
@@ -235,6 +253,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -285,6 +304,38 @@ CONV_BLOCKS = [
 # round_shift where the reference's int32 arithmetic wraps: biases within
 # 2^20 of -2^31 and 2^31 - 1, shifts from 1 past 32
 EXTREME_SHIFTS = (1, 31, 32, 33, 40)
+# hand-built chains of 10 and 12 stages (tests/torch_common.py HAND_CHAINS):
+# (chain, input (h, w, c), side (h, w, c) or None, oc), every conv to oc
+# channels.  YOLO-lite's shape under ZU9 (conv/pool pairs from 3 channels)
+# with a ragged tail; pairs with ceil-mode max and avg pools, a 1x1 conv and
+# an eltwise add mid-chain, a dilated conv and a 1x1 conv as the tail.  At a
+# one-pixel tile their windows reach past the input and the card cuts them.
+LONG_HAND_CHAINS = [
+    ((("conv", "c0", 3, 3, 1, 1, 1, 1, 1, 1, 8, True, 40, 36),
+      ("pool", "p0", "max", 2, 2, 2, 2, 0, 0, 20, 18, 4),
+      ("conv", "c1", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 20, 18),
+      ("pool", "p1", "max", 2, 2, 2, 2, 0, 0, 10, 9, 4),
+      ("conv", "c2", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 10, 9),
+      ("pool", "p2", "max", 2, 2, 2, 2, 0, 0, 5, 5, 4),
+      ("conv", "c3", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 5, 5),
+      ("pool", "p3", "max", 3, 3, 2, 2, 1, 1, 3, 3, 9),
+      ("conv", "c4", 3, 3, 1, 1, 1, 1, 1, 1, 10, False, 3, 3),
+      ("pool", "p4", "avg", 2, 2, 1, 1, 0, 0, 2, 2, 4)),
+     (40, 36, 3), None, 16),
+    ((("conv", "c0", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 45, 39),
+      ("pool", "p0", "max", 3, 3, 2, 2, 0, 0, 22, 19, 9),
+      ("conv", "c1", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 22, 19),
+      ("pool", "p1", "max", 2, 2, 2, 2, 0, 0, 11, 10, 4),
+      ("conv", "c2", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 11, 10),
+      ("pool", "p2", "avg", 2, 2, 2, 2, 0, 0, 6, 5, 4),
+      ("conv", "c3", 1, 1, 1, 1, 0, 0, 1, 1, 9, False, 6, 5),
+      ("elt", "e0", 1, -1, True, 6, 5),
+      ("pool", "p3", "max", 2, 2, 2, 2, 0, 0, 3, 3, 4),
+      ("conv", "c4", 3, 3, 1, 1, 2, 2, 2, 2, 10, True, 3, 3),
+      ("pool", "p4", "max", 2, 2, 1, 1, 0, 0, 2, 2, 4),
+      ("conv", "c5", 1, 1, 1, 1, 0, 0, 1, 1, 9, True, 2, 2)),
+     (45, 39, 8), (6, 5, 16), 16),
+]
 SCAN_REPLACES = "src/repro/kernels/ssm_scan/ssm_scan.py:49"
 SCAN_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu"
 SCAN_BW_SOURCE = "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bw.cu"
@@ -412,9 +463,9 @@ def device_ms(fn, reps: int = 20) -> float:
 
 
 # ----------------------------------------------------------------- models
-def prepare_model(name: str, dev):
+def prepare_model(name: str, dev, img: int | None = None):
     """Graph, float params, calibrated QuantizedModel, strategy and
-    quantized program of one model at 224."""
+    quantized program (under ZU2) of one model at ``img`` (None: ``IMG``)."""
     from functools import partial
 
     from repro_torch.cnn import build, init_params
@@ -422,7 +473,8 @@ def prepare_model(name: str, dev):
     from repro_torch.core.executor import run_float
     from repro_torch.hw import ZU2
 
-    g = build(name, img=IMG)
+    img = img or IMG
+    g = build(name, img=img)
     params = init_params(g, seed=SEED)
     x = np.random.default_rng(SEED).standard_normal(
         g.shape("data")).astype(np.float32)
@@ -430,7 +482,7 @@ def prepare_model(name: str, dev):
     strategy = pathsearch.search(g, ZU2)
     prog = lower.lower_strategy(g, strategy, qm)
     return {"g": g, "params": params, "x": x, "qm": qm,
-            "strategy": strategy, "program": prog}
+            "strategy": strategy, "program": prog, "img": img}
 
 
 def rand_int8(shape, gen, dev):
@@ -501,9 +553,10 @@ def extreme_horizontal(gen, dev):
 
 def hand_chains(gen, dev):
     """Chains the two models do not produce: avg and ceil-mode pools,
-    negative shifts, an elt side with its own shift, dilation, gap; and a
-    conv with biases near the int32 extremes then an elt stage, at each of
-    ``EXTREME_SHIFTS`` (the elt side shifted left by as much)."""
+    negative shifts, an elt side with its own shift, dilation, gap; a conv
+    with biases near the int32 extremes then an elt stage, at each of
+    ``EXTREME_SHIFTS`` (the elt side shifted left by as much); and the 10-
+    and 12-stage chains of ``LONG_HAND_CHAINS``."""
     c1 = (("conv", "c", 3, 3, 1, 1, 1, 1, 1, 1, -2, True, 13, 11),
           ("pool", "a", "avg", 3, 3, 2, 2, 1, 1, 7, 6, 9),
           ("elt", "e", 1, -1, True, 7, 6),
@@ -530,6 +583,19 @@ def hand_chains(gen, dev):
                      (extreme_bias(12, gen, dev),),
                      (rand_int8((2, 13, 11, 12), gen, dev),)),
                     dict(chain=chain, oh=13, ow=11, oc=12)))
+    for chain, (h, w, c), side, oc in LONG_HAND_CHAINS:
+        ws, bs, cin = [], [], c
+        for st in chain:
+            if st[0] == "conv":
+                ws.append(rand_int8((st[2], st[3], cin, oc), gen, dev))
+                bs.append(torch.randint(-3000, 3000, (oc,), generator=gen,
+                                        dtype=torch.int32).to(dev))
+                cin = oc
+        last = chain[-1]
+        oh, ow = last[12:14] if last[0] == "conv" else last[9:11]
+        out.append(((rand_int8((2, h, w, c), gen, dev), tuple(ws), tuple(bs),
+                     (rand_int8((2,) + side, gen, dev),) if side else ()),
+                    dict(chain=chain, oh=oh, ow=ow, oc=oc)))
     return out
 
 
@@ -1624,6 +1690,204 @@ def serving_phase(models, prof, dev, card: str) -> dict:
         res["zoo"] = zoo_res
     res["seconds"] = time.perf_counter() - t_phase
     log(f"serving phase took {res['seconds']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------- phase 14
+# The paper's other CNNs and its second FPGA target: each (model, planning
+# target) not served above, at 224 and batch 1.  A model is calibrated once
+# on the card and its two plans share the QuantizedModel.  YOLO-lite runs
+# at 256: at 224 its reorg meets a 7x7 map, which neither package can
+# split in two (the reference's int8_ops.reorg fails on the same reshape);
+# at 256 it lowers the same plans (an 8-stage chain and two single stages
+# under ZU2, one 10-stage chain under ZU9).
+ZOO_IMG = {"yolo_lite": 256}
+ZOO_PLANS = [("vgg16", "ZU2"), ("vgg16", "ZU9"), ("resnet152", "ZU2"),
+             ("resnet152", "ZU9"), ("yolo_lite", "ZU2"), ("yolo_lite", "ZU9"),
+             ("googlenet", "ZU9"), ("resnet50", "ZU9")]
+ZOO_REQUESTS = 16        # images served by Session.run and by the Server
+ZOO_REPS = 5             # CUDA-event repetitions of an image's chain launches
+
+
+def named_chain(launch, g) -> str | None:
+    """What a chain launch is called in the log where it is one the slice
+    names: a chain of 8 stages or more, or an fc lowered as a chain on a
+    flattened input of more than 4,096 values (VGG16's fc6)."""
+    nodes = "+".join(launch.nodes)
+    if len(launch.stages) >= 8:
+        return f"{len(launch.stages)}-stage chain {nodes}"
+    c_in = int(np.prod(g.shape(launch.in_name)[1:]))
+    if launch.fc_reshape and c_in > 4096:
+        return f"fc chain {nodes} (c_in {c_in})"
+    return None
+
+
+def count_ref_nodes() -> tuple:
+    """A counter of the nodes the executor runs on its ref path (its
+    fallbacks), and the function that undoes the count."""
+    from repro_torch.core import executor
+
+    inner = executor._int8_node
+    counter = {"nodes": 0}
+
+    def counted(*a, **kw):
+        counter["nodes"] += 1
+        return inner(*a, **kw)
+
+    executor._int8_node = counted
+    return counter, lambda: setattr(executor, "_int8_node", inner)
+
+
+def zoo_plan(name, target, m, gen, dev, card) -> dict:
+    """One (model, target) plan on the card: every distinct chain launch
+    against the plain version, the compiled session against ``ref``
+    (``validate.bit_exact``), launches and fallbacks per image against the
+    program, ``Session.run`` p50/p99, ``Server`` images/s, and the chain
+    kernel's device ms per image beside its bound."""
+    from repro_torch import hw
+    from repro_torch.core import lower, pathsearch, quantize, validate
+    from repro_torch.kernels.conv_fused import ops
+    from repro_torch.runtime import Session
+
+    g, qm = m["g"], m["qm"]
+    what = f"{name}-{m['img']} under {target}"
+    plan_dev = getattr(hw, target)
+    s = pathsearch.search(g, plan_dev)
+    prog = lower.lower_strategy(g, s, qm)
+    chains = [lc for lc in prog.launches() if lc.kind == "chain"]
+    want_launches = {"fused_chain": len(chains),
+                     "fused_horizontal": len(prog.launches()) - len(chains)}
+    want_ref_nodes = sum(len(fb.nodes) for fb in prog.fallbacks())
+    # every distinct chain launch against its plain version, weights packed
+    # once as the executor passes them; each call must launch the kernel
+    seen, named = set(), []
+    for launch in chains:
+        key = (launch.stages, tuple(g.shape(launch.in_name)))
+        if key in seen:
+            continue
+        seen.add(key)
+        prep = ops.prepare_launch(launch, qm, dev)
+        args, kw = chain_args(launch, g, prep, gen, dev)
+        want = ops.fused_chain_plain(*args, **kw)
+        before = ops.LAUNCHES["fused_chain"]
+        got = ops.fused_chain(*args, **kw, packed=prep["packed"])
+        if ops.LAUNCHES["fused_chain"] != before + 1:
+            raise AssertionError(f"{what}: chain {launch.nodes} did not "
+                                 f"launch the kernel")
+        check_equal(got, want, f"{what}: chain {launch.nodes}")
+        label = named_chain(launch, g)
+        if label:
+            named.append(label)
+    log(f"phase 14, {what}: fused_chain == plain on "
+        f"{len(seen)} distinct chain launches, the kernel launched for "
+        f"each; among them {named or 'none named'}")
+
+    xq = quantize.quantize_to(m["x"], qm.f_a["data"])
+    imgs = quantized_images(m, ZOO_REQUESTS, SEED + 14)
+    sess, compile_s = timed(lambda: Session(g, s, plan_dev, qm, device=dev))
+    rep = validate.bit_exact(g, qm, xq, sess.artifact, device=dev)
+    if not rep.bit_exact:
+        raise AssertionError(f"{what}: fused != ref on the card (max "
+                             f"|diff| {rep.max_abs_diff})")
+    ref_nodes, undo = count_ref_nodes()
+    try:
+        ops.reset_counts()                  # ---- main path starts here
+        out = sess.run(imgs[0])
+        torch.cuda.synchronize()
+        per_image, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        # ---- main path ends here
+    finally:
+        undo()
+    if (per_image != want_launches or any(plain.values())
+            or ref_nodes["nodes"] != want_ref_nodes):
+        raise AssertionError(
+            f"{what}: launches per image {per_image} (program "
+            f"{want_launches}), ref-path nodes {ref_nodes['nodes']} (program "
+            f"{want_ref_nodes}), plain calls {plain}")
+    for k, v in out.items():
+        if not (v.device.type == dev.type
+                and bool(torch.isfinite(v.float()).all())):
+            raise AssertionError(f"{what}: output {k} {v}")
+    lat = []
+    for _ in range(2):
+        for x in imgs:
+            t0 = time.perf_counter()
+            sess.run(x)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+    lat.sort()
+    server = sess.serve(max_batch=8, max_latency_s=5e-3)
+    t0 = time.perf_counter()
+    futs = [server.submit(x) for x in imgs]
+    answers = [f.result(timeout=300) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = server.stats()
+    server.close()
+    for i, (x, ans) in enumerate(zip(imgs, answers)):
+        outputs_equal(ans, sess.run(x), f"{what}: server answer {i}")
+    # the chain kernel over one image's chain launches, back to back
+    runs, nbytes, macs, bound = [], 0, 0, 0.0
+    for launch in chains:
+        prep = ops.prepare_launch(launch, qm, dev)
+        args, kw = chain_args(launch, g, prep, gen, dev)
+        runs.append((args, kw, prep["packed"]))
+        b, mc = chain_work(launch, args, kw)
+        nbytes, macs = nbytes + b, macs + mc
+        bound += max(1e3 * b / MEM_BW, 1e3 * 2 * mc / INT8_PEAK)
+
+    def image():
+        for args, kw, pk in runs:
+            ops.fused_chain(*args, **kw, packed=pk)
+    chain_ms = device_ms(image, reps=ZOO_REPS)
+    res = {"card": card, "launches_per_image": per_image,
+           "fallbacks_per_image": len(prog.fallbacks()),
+           "ref_path_nodes_per_image": ref_nodes["nodes"],
+           "chain_lengths": {str(k): v for k, v in sorted(
+               Counter(len(lc.stages) for lc in chains).items())},
+           "named_chains": named, "distinct_chains_checked": len(seen),
+           "bit_exact": rep.bit_exact, "compile_s": compile_s,
+           "run_p50_ms": 1e3 * lat[len(lat) // 2],
+           "run_p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+           "server_images_per_s": ZOO_REQUESTS / wall,
+           "server_batches": stats["batch_histogram"],
+           "chain_ms_per_image": chain_ms, "chain_bound_ms": bound,
+           "chain_bound_by": ("bytes" if nbytes / MEM_BW
+                              >= 2 * macs / INT8_PEAK else "operations"),
+           "chain_bytes": nbytes, "chain_macs": macs}
+    if name == "vgg16":
+        res["int8_gop_per_image"] = 2 * macs / 1e9
+        res["int8_top_per_s"] = 2 * macs / (chain_ms * 1e-3) / 1e12
+    return res
+
+
+def zoo_cnn_phase(models, dev, card: str) -> dict:
+    """Phase 14: the eight plans of ``ZOO_PLANS`` on the card."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 14)
+    res: dict = {}
+    calibrated: dict = {}
+    for name, target in ZOO_PLANS:
+        if name not in calibrated:
+            if name in models:
+                calibrated[name] = models[name]
+            else:
+                t0 = time.perf_counter()
+                calibrated[name] = prepare_model(name, dev,
+                                                 ZOO_IMG.get(name, IMG))
+                log(f"phase 14: calibrated {name}-{calibrated[name]['img']} "
+                    f"on the card in "
+                    f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        r = zoo_plan(name, target, calibrated[name], gen, dev, card)
+        r["seconds"] = time.perf_counter() - t0
+        res[f"{name}-{calibrated[name]['img']} {target}"] = r
+        log(f"phase 14, {name}-{calibrated[name]['img']} under {target} on "
+            f"{card}: "
+            f"{json.dumps(r)}")
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 took {res['seconds']:.1f} s")
     return res
 
 
@@ -3955,6 +4219,7 @@ def main() -> int:
     served = slice_phase(models, dev, card)
     tuned = tune_phase(models["googlenet"], dev, card)
     serving = serving_phase(models, tuned.pop("profile"), dev, card)
+    zoo_cnn = zoo_cnn_phase(models, dev, card)
     del models
     torch.cuda.empty_cache()
     flash_errs = flash_kernel_phase(dev)
@@ -4027,7 +4292,18 @@ def main() -> int:
                             "without, and forced to each chain's fastest "
                             "non-default candidate",
         "forced_ms_per_image": tuned["chain_ms_per_image"]["forced"],
-        "tuned_launches": tuned["tile_records_applied"]})
+        "tuned_launches": tuned["tile_records_applied"],
+        "zoo_plans": {
+            plan: {k: r[k] for k in (
+                "launches_per_image", "fallbacks_per_image", "chain_lengths",
+                "named_chains", "chain_ms_per_image", "chain_bound_ms",
+                "chain_bound_by", "run_p50_ms", "run_p99_ms",
+                "server_images_per_s", "bit_exact")}
+            for plan, r in zoo_cnn.items() if plan != "seconds"},
+        "zoo_plans_of": "phase 14: launches, fallbacks and chain lengths "
+                        "per image of each (model, planning target), batch "
+                        "1; chain_ms_per_image is CUDA-event device time "
+                        "of the image's chain launches back to back"})
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "kernels": ["flash_wgmma_kernel (bf16/fp16, d 64 and 128)",
@@ -4127,6 +4403,7 @@ def main() -> int:
     checked["artifact"] = served["artifact"]
     checked["tune"] = tuned
     checked["serving_plane"] = serving
+    checked["zoo_cnn"] = zoo_cnn
     checked["flash_max_abs_err"] = flash_errs
     checked["ssm_scan_err"] = scan_errs
     checked["seamless"] = seamless

@@ -14,6 +14,12 @@
 // and ceil-extended max pools and count-include-pad avg pools exactly, at any
 // tile.  Image borders are padded virtually: a load outside the input reads
 // the first stage's pad identity, so the launcher never pads in memory.
+// A window whose halo reaches past all that its stage's true outputs read
+// (a small tile's receptive field beyond a small map, as in VGG16's 9-stage
+// chains on 16x16 maps) is cut to that range (ops._windows); a stage then
+// reads its input at an offset, clamped to the window, and the outputs
+// whose reads the clamp moves are ones the tile's final output does not
+// depend on.
 //
 // Each conv stage is an implicit GEMM on the int8 tensor cores (mma.sync
 // m16n8k32 s8 x s8 -> s32): M = the stage's output pixels, N = its output
@@ -63,9 +69,11 @@
 #include <stdint.h>
 #include <string.h>
 
-#define MAX_STAGES 8
-#define HDR 32
-#define STG 32
+// Stages a chain may have (ops.MAX_STAGES): the records and pointers below
+// are kernel parameters, and 24 stages keep them within 4 KB.
+#define MAX_STAGES 24
+#define HDR 34
+#define STG 34
 #define THREADS 256
 
 // One stage record; field order matches ops.chain_plan.
@@ -86,6 +94,7 @@ struct Stage {
   int out_buf;                 // 0 buffer A, 1 buffer B, 2 the output
   int side_h, side_w, side_sn, side_sh, side_sw;
   int ps;       // pixel stride in bytes of this stage's output window
+  int or0, oc0; // origin of a cut output window (-1: the tile's own)
 };
 static_assert(sizeof(Stage) == STG * 4, "stage record size");
 
@@ -98,6 +107,7 @@ struct Header {
   int w1_off;   // shared offset of the odd convs' weight panels
   int koff;     // shared offset of the K-group offset table
   int global_b; // bit i: conv stage i reads its weights from device memory
+  int in_or, in_oc;  // origin of a cut input window (-1: the tile's own)
 };
 static_assert(sizeof(Header) == HDR * 4, "header size");
 
@@ -110,6 +120,7 @@ struct ChainParams {
   const int32_t* b[MAX_STAGES];
   const int8_t* side[MAX_STAGES];
 };
+static_assert(sizeof(ChainParams) <= 4096, "kernel parameters past 4 KB");
 
 // The reference's int32 arithmetic (src/repro/core/int8_ops.py round_shift)
 // under XLA's rules, with every wrap done on uint32_t so that it is defined:
@@ -170,12 +181,34 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Where one stage's windows sit for this block: its input window's extent
+// and pixel stride, the input row and column that output (0, 0) reads at tap
+// (0, 0), and the padded position of its output window's (0, 0).
+struct Place {
+  int src_rows, src_cols, ps_in;
+  int dr, dc;
+  int out_r, out_c;
+};
+
+// The input window's row (col) where output row r (col c) starts reading,
+// clamped so that its taps stay inside the window.
+__device__ __forceinline__ const int8_t* tap0(const Stage& s, const Place& pl,
+                                              const int8_t* src, int r,
+                                              int c) {
+  const int rr = min(max(r * s.sh + pl.dr, 0),
+                     pl.src_rows - s.dh * (s.kh - 1) - 1);
+  const int cc = min(max(c * s.sw + pl.dc, 0),
+                     pl.src_cols - s.dw * (s.kw - 1) - 1);
+  return src + (rr * pl.src_cols + cc) * pl.ps_in;
+}
+
 // Writes one stage output value: to the output tensor for the last stage
 // (inside (OH, OW) only), else to the next window, masked to the next
 // stage's pad identity outside this stage's true extent.
 __device__ __forceinline__ void put(const ChainParams& p, const Stage& s,
-                                    int8_t* dst, int idx, int n, int j,
-                                    int jw, int r, int c, int ch, int v) {
+                                    const Place& pl, int8_t* dst, int idx,
+                                    int n, int j, int jw, int r, int c,
+                                    int ch, int v) {
   const Header& h = p.h;
   if (s.out_buf == 2) {
     const int orow = j * h.th + r;
@@ -184,8 +217,8 @@ __device__ __forceinline__ void put(const ChainParams& p, const Stage& s,
       p.out[(((long long)n * h.OH + orow) * h.OW + ocol) * h.OC + ch] =
           (int8_t)v;
   } else {
-    const int pr = j * s.fout + r;
-    const int pc = jw * s.foutw + c;
+    const int pr = pl.out_r + r;
+    const int pc = pl.out_c + c;
     const bool valid = pr >= s.q0 && pr < s.q0 + s.true_h &&
                        pc >= s.q1 && pc < s.q1 + s.true_w;
     dst[idx] = (int8_t)(valid ? v : s.fill_next);
@@ -204,7 +237,7 @@ __host__ __device__ __forceinline__ int conv_nt(int cout) {
 // the source window.
 template <int NT, bool GB>
 __device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
-                               const int8_t* src, int src_cols, int ps_in,
+                               const Place& pl, const int8_t* src,
                                int8_t* dst, const int8_t* wsm,
                                const int* koff, int k, int j, int jw, int n) {
   const int ch0 = s.sliced ? k * p.h.toc : 0;
@@ -223,7 +256,7 @@ __device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
     for (int hh = 0; hh < 2; ++hh) {
       const int m = min(m0 + g + 8 * hh, M - 1);
       const int r = m / s.cols, c = m - r * s.cols;
-      px[hh] = src + (r * s.sh * src_cols + c * s.sw) * ps_in;
+      px[hh] = tap0(s, pl, src, r, c);
     }
     int acc[NT][4];
 #pragma unroll
@@ -277,15 +310,17 @@ __device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
         const int r = m / s.cols, c = m - r * s.cols;
         int v = round_shift(add32(acc[a][e], bias[col]), s.shift);
         if (s.relu) v = max(v, 0);
-        put(p, s, dst, m * s.ps + col, n, j, jw, r, c, ch0 + col, clamp8(v));
+        put(p, s, pl, dst, m * s.ps + col, n, j, jw, r, c, ch0 + col,
+            clamp8(v));
       }
   }
 }
 
 // A pool or eltwise stage, one output value per thread.
 __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
-                             const int8_t* src, int src_cols, int ps_in,
-                             int8_t* dst, int k, int j, int jw, int n) {
+                             const Place& pl, const int8_t* src, int8_t* dst,
+                             int k, int j, int jw, int n) {
+  const int src_cols = pl.src_cols, ps_in = pl.ps_in;
   const int ch0 = s.sliced ? k * p.h.toc : 0;
   const int total = s.rows * s.cols * s.cout;
   for (int idx = threadIdx.x; idx < total; idx += THREADS) {
@@ -295,7 +330,7 @@ __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
     const int r = rc / s.cols;
     int v;
     if (s.type == 1) {  // pool: channelwise, cin == cout
-      const int8_t* sp = src + (r * s.sh * src_cols + c * s.sw) * ps_in + o;
+      const int8_t* sp = tap0(s, pl, src, r, c) + o;
       if (s.pkind == 0) {
         int best = -128;
         for (int ki = 0; ki < s.kh; ++ki)
@@ -309,10 +344,10 @@ __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
             sum += (int)sp[(ki * src_cols + kj) * ps_in];
         v = clamp8(rounded_div(sum, s.cnt));
       }
-    } else {  // elt: the input window has this stage's shape
-      const int a = src[rc * ps_in + o];
-      const int sr = j * s.fout + r - s.q0;
-      const int sc = jw * s.foutw + c - s.q1;
+    } else {  // elt: a 1x1 window at stride 1
+      const int a = tap0(s, pl, src, r, c)[o];
+      const int sr = pl.out_r + r - s.q0;
+      const int sc = pl.out_c + c - s.q1;
       int b = 0;
       if (sr >= 0 && sr < s.side_h && sc >= 0 && sc < s.side_w)
         b = p.side[i][(long long)n * s.side_sn + (long long)sr * s.side_sh
@@ -321,7 +356,7 @@ __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
       if (s.relu) v = max(v, 0);
       v = clamp8(v);
     }
-    put(p, s, dst, rc * s.ps + o, n, j, jw, r, c, ch0 + o, v);
+    put(p, s, pl, dst, rc * s.ps + o, n, j, jw, r, c, ch0 + o, v);
   }
 }
 
@@ -367,6 +402,9 @@ chain_kernel(const __grid_constant__ ChainParams p) {
     stage_panel(p, next_conv, k, w_even);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
+  // padded position of the input window's (0, 0)
+  const int in_r = h.in_or >= 0 ? h.in_or : j * h.f_in;
+  const int in_c = h.in_oc >= 0 ? h.in_oc : jw * h.fw_in;
   {  // halo'd input window -> buffer A, pixel stride in_ps
     const int ch0 = h.in_sliced ? k * h.toc : 0;
     const int8_t* xn = p.x + (long long)n * h.x_sn + ch0;
@@ -379,8 +417,8 @@ chain_kernel(const __grid_constant__ ChainParams p) {
     for (int idx = threadIdx.x; idx < px * per; idx += THREADS) {
       const int pix = idx / per, cw = (idx - pix * per) * wb;
       const int c = pix % h.in_cols, r = pix / h.in_cols;
-      const int xr = j * h.f_in + r - h.q_in0;
-      const int xc = jw * h.fw_in + c - h.q_in1;
+      const int xr = in_r + r - h.q_in0;
+      const int xc = in_c + c - h.q_in1;
       const bool in = xr >= 0 && xr < h.H && xc >= 0 && xc < h.W;
       const int8_t* sp = xn + (long long)xr * h.x_sh + (long long)xc * h.x_sw
                          + cw;
@@ -400,11 +438,23 @@ chain_kernel(const __grid_constant__ ChainParams p) {
   }
 
   int src_buf = 0;
-  int src_cols = h.in_cols;
-  int ps_in = h.in_ps;
+  Place pl;
+  pl.src_rows = h.in_rows;
+  pl.src_cols = h.in_cols;
+  pl.ps_in = h.in_ps;
+  pl.out_r = in_r;
+  pl.out_c = in_c;
   int conv_i = 0;
   for (int i = 0; i < h.n_stages; ++i) {
     const Stage& s = p.st[i];
+    {  // this stage's output window: cut, or the tile's own (the last's)
+      const int out_r = s.or0 >= 0 ? s.or0 : j * s.fout;
+      const int out_c = s.oc0 >= 0 ? s.oc0 : jw * s.foutw;
+      pl.dr = out_r * s.sh - pl.out_r;   // pl.out_* is still the input's
+      pl.dc = out_c * s.sw - pl.out_c;
+      pl.out_r = out_r;
+      pl.out_c = out_c;
+    }
     const int8_t* src = src_buf ? buf_b : buf_a;
     int8_t* dst = s.out_buf == 2 ? nullptr : (s.out_buf ? buf_b : buf_a);
     if (s.type == 0) {
@@ -427,7 +477,7 @@ chain_kernel(const __grid_constant__ ChainParams p) {
         if (4 * e < kreal) {
           const int tap = 4 * e / cinp, ic = 4 * e - tap * cinp;
           const int ki = tap / s.kw, kj = tap - ki * s.kw;
-          off = (ki * s.dh * src_cols + kj * s.dw) * ps_in + ic;
+          off = (ki * s.dh * pl.src_cols + kj * s.dw) * pl.ps_in + ic;
         }
         koff[e] = off;
       }
@@ -439,8 +489,8 @@ chain_kernel(const __grid_constant__ ChainParams p) {
       switch (sel) {
 #define CONV_CASE(NT_, GB_)                                                \
   case NT_ + 8 * (int)GB_:                                                 \
-    conv_stage_mma<NT_, GB_>(p, i, s, src, src_cols, ps_in, dst, wsm, koff, \
-                             k, j, jw, n);                                 \
+    conv_stage_mma<NT_, GB_>(p, i, s, pl, src, dst, wsm, koff, k, j, jw,  \
+                             n);                                           \
     break;
         CONV_CASE(4, false) CONV_CASE(2, false) CONV_CASE(1, false)
         CONV_CASE(4, true) CONV_CASE(2, true) CONV_CASE(1, true)
@@ -448,12 +498,13 @@ chain_kernel(const __grid_constant__ ChainParams p) {
       }
       ++conv_i;
     } else {
-      stage_scalar(p, i, s, src, src_cols, ps_in, dst, k, j, jw, n);
+      stage_scalar(p, i, s, pl, src, dst, k, j, jw, n);
     }
     __syncthreads();
     src_buf = s.out_buf;
-    src_cols = s.cols;
-    ps_in = s.ps;
+    pl.src_rows = s.rows;
+    pl.src_cols = s.cols;
+    pl.ps_in = s.ps;
   }
 }
 

@@ -179,8 +179,12 @@ def fused_horizontal_plain(x, w, b, shift_vec, relu_vec, *, stride, pad):
 SMEM_MAX = 232448
 N_SM = 132
 THREADS = 256
-MAX_STAGES = 8
-HDR, STG = 32, 32           # int32 fields of the header / of each stage
+# Stages a chain may have: the kernel takes its stage records and per-stage
+# pointers by value, and 24 of them keep its parameters within the 4 KB that
+# every CUDA release passes (the longest chain the five CNNs lower to under
+# ZU2 or ZU9 has 10 stages: YOLO-lite under ZU9).
+MAX_STAGES = 24
+HDR, STG = 34, 34           # int32 fields of the header / of each stage
 _TYPE = {"conv": 0, "pool": 1, "elt": 2}
 _PKIND = {"max": 0, "avg": 1, "gap": 1}   # gap is an avg over the window
 
@@ -227,20 +231,48 @@ def _panel(cout: int, kp: int) -> int:
     return _align(cout, 8 * nt) * (kp + 16)
 
 
+def _windows(chain, geom) -> list:
+    """(rows, cols, row origin, col origin) of each window a block holds,
+    window k being stage k's input (k = 0 the chain's input, else stage
+    k - 1's output).  A window is the tile's halo in padded coordinates,
+    placed at the tile's own origin (origin -1: j * f rows and jw * fw
+    columns in).  Where that halo is larger than the whole range that stage
+    k's true outputs read (a small tile's receptive field beyond a small
+    map), the window is cut to that range, the same for every tile, and its
+    origin is the range's start: the rows it leaves out feed only outputs
+    that the tile's final output does not depend on."""
+    out = []
+    for k, st in enumerate(chain):
+        natural = ((geom["in_rows"], geom["in_cols"]) if k == 0 else
+                   (geom["rows"][k - 1], geom["cols"][k - 1]))
+        ekh, ekw, sh, sw, _, _ = _stage_geom(st)
+        dims = []
+        for n, q, t, s, e in zip(natural, geom["q"][k], _true_hw(st),
+                                 (sh, sw), (ekh, ekw)):
+            need = (t - 1) * s + e
+            dims.append((need, q * s) if n > need else (n, -1))
+        out.append((dims[0][0], dims[1][0], dims[0][1], dims[1][1]))
+    return out
+
+
 def _layout(chain, geom, ch, last_conv, c_in, toc) -> dict:
     """Shared memory of one block at one tiling: the two window buffers
     (window k in A when k is even, B when odd; k = 0 is the input, pixel
-    strides ``_ps``), the weight panel buffers (even convs' in the first,
-    odd convs' in the second, so the next conv's panel loads while a stage
-    computes) and the K-group offset table.  A panel that does not fit
-    beside the rest (largest first) is read from device memory instead:
-    bit i of ``global_b`` marks stage i."""
+    strides ``_ps``, extents ``_windows``), the weight panel buffers (even
+    convs' in the first, odd convs' in the second, so the next conv's panel
+    loads while a stage computes) and the K-group offset table.  A panel
+    that does not fit beside the rest (largest first) is read from device
+    memory instead: bit i of ``global_b`` marks stage i.  ``rows`` and
+    ``cols`` are each stage's output window as the block computes it."""
     m = len(chain)
     cout = [toc if i >= last_conv else ch[i] for i in range(m)]
     in_c = toc if last_conv < 0 else c_in
     ps = [_ps(c) for c in cout]
-    win = [geom["in_rows"] * geom["in_cols"] * _ps(in_c)] + [
-        geom["rows"][i] * geom["cols"][i] * ps[i] for i in range(m - 1)]
+    wins = _windows(chain, geom)
+    rows = [w[0] for w in wins[1:]] + [geom["rows"][-1]]
+    cols = [w[1] for w in wins[1:]] + [geom["cols"][-1]]
+    win = [wins[0][0] * wins[0][1] * _ps(in_c)] + [
+        rows[i] * cols[i] * ps[i] for i in range(m - 1)]
     size_a = _align(max(win[0::2]))
     size_b = _align(max(win[1::2])) if m > 1 else 0
     convs, kps, cin = [], {}, in_c
@@ -260,6 +292,7 @@ def _layout(chain, geom, ch, last_conv, c_in, toc) -> dict:
         staged.remove(max(staged, key=lambda i: panels[i]))
     w0, w1 = buffers()
     return {"cout": cout, "in_c": in_c, "ps": ps, "win": win,
+            "windows": wins, "rows": rows, "cols": cols,
             "size_a": size_a, "size_b": size_b, "kps": kps,
             "panels": panels, "staged": staged,
             "global_b": sum(1 << i for i in convs if i not in staged),
@@ -283,7 +316,7 @@ def _plan_cost(chain, geom, ch, last_conv, c_in, toc, n, oc):
     cycles = 500 + lay["win"][0] / 64
     issued = 0
     for i, st in enumerate(chain):
-        rows, cols = geom["rows"][i], geom["cols"][i]
+        rows, cols = lay["rows"][i], lay["cols"][i]
         if st[0] == "conv":
             nt = conv_nt(cout[i])
             items = -(-rows * cols // 16) * -(-cout[i] // (8 * nt))
@@ -368,7 +401,7 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
     th, tw, toc = tile
     m = len(chain)
     if m > MAX_STAGES:
-        raise ValueError(f"chain of {m} stages; the kernel takes "
+        raise ValueError(f"chain of {m} stages; the kernel takes at most "
                          f"{MAX_STAGES}")
     geom = chain_geometry(chain, th, oh, ow, tw)
     ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
@@ -377,7 +410,8 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
     d = np.zeros(HDR + STG * m, np.int32)
     d[0] = m
     d[4] = c_in
-    d[8:11] = (geom["in_rows"], geom["in_cols"], in_c)
+    wins = lay["windows"]
+    d[8:11] = (wins[0][0], wins[0][1], in_c)
     d[11] = int(last_conv < 0)
     d[12:17] = (geom["f_in"], geom["fw_in"], geom["q_in"][0],
                 geom["q_in"][1], geom["fill0"])
@@ -385,6 +419,7 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
     d[23:26] = (oh, ow, oc)
     d[26:32] = (lay["size_a"], _ps(in_c), lay["w_off"], lay["w1_off"],
                 lay["koff"], lay["global_b"])
+    d[32:34] = wins[0][2:]
     cin = in_c
     for i, st in enumerate(chain):
         s = d[HDR + STG * i:HDR + STG * (i + 1)]
@@ -400,7 +435,7 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
         else:
             s[1:7] = (1, 1, 1, 1, 1, 1)
             s[7], s[11], s[8] = st[2], st[3], int(st[4])
-        s[12:16] = (geom["rows"][i], geom["cols"][i], cin, cout[i])
+        s[12:16] = (lay["rows"][i], lay["cols"][i], cin, cout[i])
         s[17] = int(i >= last_conv)
         s[18:20] = geom["q"][i]
         s[20:22] = _true_hw(st)
@@ -408,6 +443,7 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
         s[24] = _fill_of(chain[i + 1]) if i + 1 < m else 0
         s[25] = 2 if i == m - 1 else (1 if i % 2 == 0 else 0)
         s[31] = lay["ps"][i] if i < m - 1 else 0
+        s[32:34] = wins[i + 1][2:] if i < m - 1 else (-1, -1)
         cin = cout[i]
     d.setflags(write=False)
     return d, lay["smem"]

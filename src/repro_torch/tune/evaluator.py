@@ -22,8 +22,10 @@ kernel's work in interpret mode:
   last conv) at full channels for its OC tile, so all stages are charged
   once per block (the reference charges upstream stages once per row cell:
   XLA hoists them out of its grid loop);
-* ``rd`` holds, per block, the halo'd input window, the elt sides' windows
-  and the weight bytes the block reads: its panel, staged once by
+* ``rd`` holds, per block, the halo'd input window (as the kernel holds
+  it: cut where it reaches past what the first stage reads,
+  ``ops._windows``), the elt sides' windows and the weight bytes the block
+  reads: its panel, staged once by
   ``cp.async``, or where the panel did not fit beside the windows, read
   from device memory once per row of 16-pixel warp items (the reference
   leaves weight panels out of ``rd``);
@@ -107,11 +109,11 @@ def _chain_vec(g: XGraph, launch: lower.FusedLaunch):
               * (oc // toc))
     cout = lay["cout"]
     per = np.zeros(len(COEF_NAMES))          # one block's work
-    per[_RD] = geom["in_rows"] * geom["in_cols"] * lay["in_c"]
+    per[_RD] = lay["windows"][0][0] * lay["windows"][0][1] * lay["in_c"]
     per[_WR] = th * tw * toc
     cin = lay["in_c"]
     for i, st in enumerate(chain):
-        px = geom["rows"][i] * geom["cols"][i]
+        px = lay["rows"][i] * lay["cols"][i]
         if st[0] == "conv":
             nt = fused_ops.conv_nt(cout[i])
             m_items = -(-px // 16)

@@ -10,9 +10,10 @@ import torch
 
 from repro_torch.core import int8_ops, lower
 from repro_torch.kernels.conv_fused import ops
-from torch_common import (GOOGLENET_HORIZONTAL, HAND_CHAINS,
-                          RAGGED_HORIZONTAL, hand_chain_args,
-                          horizontal_args, port_model, strategy)
+from torch_common import (CHAIN_HDR, GOOGLENET_HORIZONTAL, HAND_CHAINS,
+                          RAGGED_HORIZONTAL, emulate_chain_kernel,
+                          hand_chain_args, horizontal_args, port_model,
+                          strategy)
 from torch_common import i8 as _i8
 
 
@@ -51,7 +52,7 @@ def test_card_tiles_fit_shared_memory_at_224(model):
                                     (th, tw, toc))
         assert 0 < smem <= ops.SMEM_MAX
         assert len(desc) == ops.HDR + ops.STG * len(launch.stages)
-        h = dict(zip(_HDR, desc[:len(_HDR)].tolist()))
+        h = dict(zip(CHAIN_HDR, desc[:len(CHAIN_HDR)].tolist()))
         assert 0 < h["buf_b"] <= h["w_off"] <= h["w1_off"] <= h["koff"] \
             <= smem and all(h[f] % 16 == 0
                            for f in ("buf_b", "w_off", "w1_off", "koff"))
@@ -68,144 +69,6 @@ def test_card_tiles_fit_shared_memory_at_224(model):
             launch.nodes
 
 
-_HDR = ("n_stages N H W C x_sn x_sh x_sw in_rows in_cols in_c in_sliced f_in "
-        "fw_in q_in0 q_in1 fill0 th tw toc n_h n_w n_k OH OW OC buf_b in_ps "
-        "w_off w1_off koff global_b").split()
-_STG = ("type kh kw sh sw dh dw shift relu pkind cnt s_side rows cols cin "
-        "cout kp sliced q0 q1 true_h true_w fout foutw fill_next out_buf "
-        "side_h side_w side_sn side_sh side_sw ps").split()
-
-
-def _rshift(v, s):
-    return (np.sign(v) * ((np.abs(v) + (1 << (s - 1))) >> s) if s > 0
-            else v << -s)
-
-
-def _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
-    """What ``chain_kernel`` in csrc/conv_fused.cu computes from the packed
-    descriptor and the packed weights: per block, the halo'd window with
-    virtual padding stored at its pixel stride (the bytes past the channels
-    hold junk the kernel never writes), each conv stage as the tensor cores
-    see it — A words read at a pixel's offset plus the K-group offset
-    table's entry, B rows of the block's slice of ``pack_chain_weights`` —
-    pools and eltwise adds over the strided window, masking to the next
-    stage's pad identity, and the final tile written where it lies inside
-    (OH, OW)."""
-    junk = np.random.default_rng(99)
-    n_img, hh, ww, c_in = x.shape
-    conv_at = [i for i, st in enumerate(chain) if st[0] == "conv"]
-    oc_list = [0] * len(chain)
-    for i, t in zip(conv_at, w):
-        oc_list[i] = t.shape[-1]
-    desc, smem = ops.chain_plan(chain, oh, ow, oc, c_in, tuple(oc_list), tile)
-    assert smem <= ops.SMEM_MAX
-    h = dict(zip(_HDR, desc[:len(_HDR)].tolist()))
-    st = [dict(zip(_STG, desc[ops.HDR + ops.STG * i:][:len(_STG)].tolist()))
-          for i in range(len(chain))]
-    assert h["buf_b"] % 16 == 0 and h["w_off"] % 16 == 0 \
-        and h["w1_off"] % 16 == 0
-    packed = {i: ops.pack_chain_weights(torch.as_tensor(t)).numpy().astype(
-        np.int64) for i, t in zip(conv_at, w)}
-    bias = dict(zip(conv_at, b))
-    smap = dict(zip([i for i, s in enumerate(chain) if s[0] == "elt"], sides))
-    out = np.zeros((n_img, oh, ow, oc), np.int64)
-
-    def strided(vals, ps):
-        """A (rows, cols, ch) window stored at pixel stride ps, flat."""
-        r, c, chn = vals.shape
-        flat = junk.integers(-128, 128, (r, c, ps)).astype(np.int64)
-        flat[..., :chn] = vals
-        return flat.reshape(-1)
-
-    for n in range(n_img):
-        for j in range(h["n_h"]):
-            for jw in range(h["n_w"]):
-                for k in range(h["n_k"]):
-                    rows = j * h["f_in"] + np.arange(h["in_rows"]) - h["q_in0"]
-                    cols = jw * h["fw_in"] + np.arange(h["in_cols"]) - h["q_in1"]
-                    ch0 = k * h["toc"] if h["in_sliced"] else 0
-                    inside = (((rows >= 0) & (rows < hh))[:, None]
-                              & ((cols >= 0) & (cols < ww))[None, :])
-                    src = x[n][np.clip(rows, 0, hh - 1)][:, np.clip(
-                        cols, 0, ww - 1)][..., ch0:ch0 + h["in_c"]]
-                    src = np.where(inside[..., None], src.astype(np.int64),
-                                   h["fill0"])
-                    flat, ps_in, src_cols = (strided(src, h["in_ps"]),
-                                             h["in_ps"], h["in_cols"])
-                    for i, s in enumerate(st):
-                        c0 = k * h["toc"] if s["sliced"] else 0
-                        R, C, CO = s["rows"], s["cols"], s["cout"]
-                        view = flat.reshape(-1, src_cols, ps_in)
-                        assert view.shape[2] >= s["cin"]
-                        if s["type"] == 0:
-                            cinp = -(-s["cin"] // 4) * 4
-                            kreal = s["kh"] * s["kw"] * cinp
-                            koff = np.zeros(s["kp"] // 4, np.int64)
-                            for e in range(kreal // 4):
-                                tap, ic = divmod(4 * e, cinp)
-                                ki, kj = divmod(tap, s["kw"])
-                                koff[e] = ((ki * s["dh"] * src_cols
-                                            + kj * s["dw"]) * ps_in + ic)
-                            m = np.arange(R * C)
-                            px = ((m // C) * s["sh"] * src_cols
-                                  + (m % C) * s["sw"]) * ps_in
-                            a = flat[(px[:, None, None] + koff[None, :, None]
-                                      + np.arange(4)[None, None, :])]
-                            a = a.reshape(R * C, s["kp"])
-                            panel = packed[i][c0:c0 + CO]
-                            assert panel.shape[1] == s["kp"]
-                            v = (a @ panel.T + bias[i][c0:c0 + CO]).reshape(
-                                R, C, CO)
-                            v = _rshift(v, s["shift"])
-                        else:
-                            win = view[..., :s["cin"]]
-
-                            def tap(ki, kj):
-                                return win[ki:ki + (R - 1) * s["sh"] + 1:
-                                           s["sh"], kj:kj + (C - 1)
-                                           * s["sw"] + 1:s["sw"]]
-                        if s["type"] == 1:
-                            ws = [tap(ki, kj) for ki in range(s["kh"])
-                                  for kj in range(s["kw"])]
-                            if s["pkind"] == 0:
-                                v = np.max(ws, axis=0)
-                            else:
-                                t = np.sum(ws, axis=0)
-                                v = np.sign(t) * ((np.abs(t) + s["cnt"] // 2)
-                                                  // s["cnt"])
-                        elif s["type"] == 2:
-                            side = smap[i][n].astype(np.int64)
-                            sr = j * s["fout"] + np.arange(R) - s["q0"]
-                            sc = jw * s["foutw"] + np.arange(C) - s["q1"]
-                            ok = (((sr >= 0) & (sr < side.shape[0]))[:, None]
-                                  & ((sc >= 0) & (sc < side.shape[1]))[None, :])
-                            sv = side[np.clip(sr, 0, side.shape[0] - 1)][
-                                :, np.clip(sc, 0, side.shape[1] - 1)][
-                                ..., c0:c0 + CO]
-                            v = (_rshift(win, s["shift"])
-                                 + _rshift(np.where(ok[..., None], sv, 0),
-                                           s["s_side"]))
-                        if s["relu"]:
-                            v = np.maximum(v, 0)
-                        v = np.clip(v, -128, 127)
-                        if s["out_buf"] == 2:
-                            r0, cc0 = j * h["th"], jw * h["tw"]
-                            r1, c1 = min(oh, r0 + R), min(ow, cc0 + C)
-                            out[n, r0:r1, cc0:c1, c0:c0 + CO] = \
-                                v[:r1 - r0, :c1 - cc0]
-                        else:
-                            pr = j * s["fout"] + np.arange(R)[:, None]
-                            pc = jw * s["foutw"] + np.arange(C)[None, :]
-                            valid = ((pr >= s["q0"]) & (pr < s["q0"] + s["true_h"])
-                                     & (pc >= s["q1"])
-                                     & (pc < s["q1"] + s["true_w"]))
-                            v = np.where(valid[..., None], v, s["fill_next"])
-                            assert s["ps"] % 4 == 0 and s["ps"] >= CO
-                            flat, ps_in, src_cols = strided(v, s["ps"]), \
-                                s["ps"], C
-    return out.astype(np.int8)
-
-
 @pytest.mark.parametrize("i", range(len(HAND_CHAINS)))
 @pytest.mark.parametrize("tile", [None, (3, 5, 4), (1, 1, 8), (2, 3, 16)])
 def test_descriptor_walk_matches_plain(i, tile):
@@ -220,7 +83,7 @@ def test_descriptor_walk_matches_plain(i, tile):
     else:
         toc = tile[2] if oc % tile[2] == 0 else oc
         tile = (min(tile[0], oh), min(tile[1], ow), toc)
-    got = _emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile)
+    got = emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile)
     want = ops.fused_chain_plain(
         torch.as_tensor(x), [torch.as_tensor(t) for t in w],
         [torch.as_tensor(t) for t in b], [torch.as_tensor(t) for t in sides],
@@ -248,7 +111,7 @@ def test_descriptor_walk_matches_plain_on_model_launches():
             oh, ow = launch.out_hw
             tile = ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in, 1,
                                          oc_list)
-            got = _emulate_chain_kernel(x, w, b, sides, launch.stages, oh, ow,
+            got = emulate_chain_kernel(x, w, b, sides, launch.stages, oh, ow,
                                         oc, tile)
             want = ops.fused_chain_plain(
                 torch.as_tensor(x), prep["weights"], prep["biases"],
@@ -278,7 +141,7 @@ def test_chain_weights_pack_in_kernel_layout(shape):
 def test_oversized_panels_read_from_device_memory():
     """A chain whose weight panels cannot all sit in shared memory beside
     its windows reads the largest from device memory (bit i of the
-    header's last field), and the emulated kernel still equals the plain
+    header's ``global_b``), and the emulated kernel still equals the plain
     version."""
     chain = (("conv", "a", 3, 3, 1, 1, 1, 1, 1, 1, 7, True, 6, 6),
              ("conv", "b", 1, 1, 1, 1, 0, 0, 1, 1, 5, False, 6, 6))
@@ -289,8 +152,8 @@ def test_oversized_panels_read_from_device_memory():
     oc_list = (256, 16)
     tile = ops.choose_chain_tile(chain, 6, 6, 16, 512, 1, oc_list)
     desc, smem = ops.chain_plan(chain, 6, 6, 16, 512, oc_list, tile)
-    assert desc[ops.HDR - 1] == 1 and smem <= ops.SMEM_MAX
-    got = _emulate_chain_kernel(x, w, b, [], chain, 6, 6, 16, tile)
+    assert desc[CHAIN_HDR.index("global_b")] == 1 and smem <= ops.SMEM_MAX
+    got = emulate_chain_kernel(x, w, b, [], chain, 6, 6, 16, tile)
     want = ops.fused_chain_plain(
         torch.as_tensor(x), [torch.as_tensor(t) for t in w],
         [torch.as_tensor(t) for t in b], [], chain=chain, oh=6, ow=6, oc=16)

@@ -32,9 +32,13 @@ def make_toy_graph(pkg: str):
 
 
 def build_graph(pkg: str, model: str, img: int):
+    """``model`` at ``img`` with 10 classes (YOLO-lite with its own 20, as
+    the reference's tests build it)."""
     if model == "toy":
         return make_toy_graph(pkg)
     cnn = importlib.import_module(f"{pkg}.cnn")
+    if model == "yolo_lite":
+        return cnn.build(model, img=img)
     return cnn.build(model, img=img, num_classes=10)
 
 
@@ -64,10 +68,12 @@ def port_model(model: str, img: int = 32, seed: int = 0):
     return build_graph("repro_torch", model, img), qm_from_reference(qm), xq
 
 
-def strategy(pkg: str, g, name: str = "search"):
+def strategy(pkg: str, g, name: str = "search", target: str = "ZU2"):
+    """``pathsearch.<name>`` of ``g`` under the planning device ``target``
+    (``hw.ZU2`` or ``hw.ZU9``) of ``pkg``."""
     pathsearch = importlib.import_module(f"{pkg}.core.pathsearch")
-    ZU2 = importlib.import_module(f"{pkg}.hw").ZU2
-    return getattr(pathsearch, name)(g, ZU2)
+    dev = getattr(importlib.import_module(f"{pkg}.hw"), target)
+    return getattr(pathsearch, name)(g, dev)
 
 
 def i8(rng, shape):
@@ -93,6 +99,36 @@ HAND_CHAINS = [
       ("pool", "m", "max", 3, 3, 2, 2, 0, 0, 8, 8, 9),
       ("conv", "d", 1, 1, 1, 1, 0, 0, 1, 1, 3, True, 8, 8)),
      (32, 32, 3), (7, 7, 3, 8), None, 8),
+    # ten stages, YOLO-lite's shape under ZU9 (conv/pool pairs from three
+    # channels) with a ragged tail: a ceil-mode max pool, a padded 3x3 one,
+    # a conv without ReLU and an avg pool at stride 1
+    ((("conv", "c0", 3, 3, 1, 1, 1, 1, 1, 1, 8, True, 40, 36),
+      ("pool", "p0", "max", 2, 2, 2, 2, 0, 0, 20, 18, 4),
+      ("conv", "c1", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 20, 18),
+      ("pool", "p1", "max", 2, 2, 2, 2, 0, 0, 10, 9, 4),
+      ("conv", "c2", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 10, 9),
+      ("pool", "p2", "max", 2, 2, 2, 2, 0, 0, 5, 5, 4),
+      ("conv", "c3", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 5, 5),
+      ("pool", "p3", "max", 3, 3, 2, 2, 1, 1, 3, 3, 9),
+      ("conv", "c4", 3, 3, 1, 1, 1, 1, 1, 1, 10, False, 3, 3),
+      ("pool", "p4", "avg", 2, 2, 1, 1, 0, 0, 2, 2, 4)),
+     (40, 36, 3), (3, 3, 3, 16), None, 16),
+    # twelve stages: conv/pool pairs, ceil-mode max and avg pools, a 1x1
+    # conv and an eltwise add mid-chain, a dilated conv, and a 1x1 conv
+    # after a stride-1 pool as the tail
+    ((("conv", "c0", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 45, 39),
+      ("pool", "p0", "max", 3, 3, 2, 2, 0, 0, 22, 19, 9),
+      ("conv", "c1", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 22, 19),
+      ("pool", "p1", "max", 2, 2, 2, 2, 0, 0, 11, 10, 4),
+      ("conv", "c2", 3, 3, 1, 1, 1, 1, 1, 1, 10, True, 11, 10),
+      ("pool", "p2", "avg", 2, 2, 2, 2, 0, 0, 6, 5, 4),
+      ("conv", "c3", 1, 1, 1, 1, 0, 0, 1, 1, 9, False, 6, 5),
+      ("elt", "e0", 1, -1, True, 6, 5),
+      ("pool", "p3", "max", 2, 2, 2, 2, 0, 0, 3, 3, 4),
+      ("conv", "c4", 3, 3, 1, 1, 2, 2, 2, 2, 10, True, 3, 3),
+      ("pool", "p4", "max", 2, 2, 1, 1, 0, 0, 2, 2, 4),
+      ("conv", "c5", 1, 1, 1, 1, 0, 0, 1, 1, 9, True, 2, 2)),
+     (45, 39, 8), (3, 3, 8, 16), (6, 5, 16), 16),
 ]
 
 
@@ -112,6 +148,169 @@ def hand_chain_args(i, rng):
     oh, ow = ((last[12], last[13]) if last[0] == "conv" else
               (last[9], last[10]) if last[0] == "pool" else (last[5], last[6]))
     return chain, x, weights, biases, sides, oh, ow, oc
+
+
+# Fields of the chain kernel's packed descriptor (``ops.chain_plan``): its
+# header, then one record per stage.
+CHAIN_HDR = ("n_stages N H W C x_sn x_sh x_sw in_rows in_cols in_c in_sliced "
+             "f_in fw_in q_in0 q_in1 fill0 th tw toc n_h n_w n_k OH OW OC "
+             "buf_b in_ps w_off w1_off koff global_b in_or in_oc").split()
+CHAIN_STG = ("type kh kw sh sw dh dw shift relu pkind cnt s_side rows cols "
+             "cin cout kp sliced q0 q1 true_h true_w fout foutw fill_next "
+             "out_buf side_h side_w side_sn side_sh side_sw ps or0 "
+             "oc0").split()
+
+
+def _rshift(v, s):
+    return (np.sign(v) * ((np.abs(v) + (1 << (s - 1))) >> s) if s > 0
+            else v << -s)
+
+
+def emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
+    """What ``chain_kernel`` in csrc/conv_fused.cu computes from the packed
+    descriptor and the packed weights: per block, the halo'd window with
+    virtual padding stored at its pixel stride (the bytes past the channels
+    hold junk the kernel never writes), each conv stage as the tensor cores
+    see it — A words read at a pixel's offset plus the K-group offset
+    table's entry, B rows of the block's slice of ``pack_chain_weights`` —
+    pools and eltwise adds over the strided window, each window at its
+    origin (the tile's, or a cut window's own) with every read clamped
+    inside it, masking to the next stage's pad identity, and the final tile
+    written where it lies inside (OH, OW)."""
+    import torch
+
+    from repro_torch.kernels.conv_fused import ops
+
+    junk = np.random.default_rng(99)
+    n_img, hh, ww, c_in = x.shape
+    conv_at = [i for i, st in enumerate(chain) if st[0] == "conv"]
+    oc_list = [0] * len(chain)
+    for i, t in zip(conv_at, w):
+        oc_list[i] = t.shape[-1]
+    desc, smem = ops.chain_plan(chain, oh, ow, oc, c_in, tuple(oc_list), tile)
+    assert smem <= ops.SMEM_MAX
+    h = dict(zip(CHAIN_HDR, desc[:len(CHAIN_HDR)].tolist()))
+    st = [dict(zip(CHAIN_STG, desc[ops.HDR + ops.STG * i:][
+        :len(CHAIN_STG)].tolist())) for i in range(len(chain))]
+    assert h["buf_b"] % 16 == 0 and h["w_off"] % 16 == 0 \
+        and h["w1_off"] % 16 == 0
+    packed = {i: ops.pack_chain_weights(torch.as_tensor(t)).numpy().astype(
+        np.int64) for i, t in zip(conv_at, w)}
+    bias = dict(zip(conv_at, b))
+    smap = dict(zip([i for i, s in enumerate(chain) if s[0] == "elt"], sides))
+    out = np.zeros((n_img, oh, ow, oc), np.int64)
+
+    def strided(vals, ps):
+        """A (rows, cols, ch) window stored at pixel stride ps, flat."""
+        r, c, chn = vals.shape
+        flat = junk.integers(-128, 128, (r, c, ps)).astype(np.int64)
+        flat[..., :chn] = vals
+        return flat.reshape(-1)
+
+    for n in range(n_img):
+        for j in range(h["n_h"]):
+            for jw in range(h["n_w"]):
+                for k in range(h["n_k"]):
+                    org = (h["in_or"] if h["in_or"] >= 0 else j * h["f_in"],
+                           h["in_oc"] if h["in_oc"] >= 0 else jw * h["fw_in"])
+                    rows = org[0] + np.arange(h["in_rows"]) - h["q_in0"]
+                    cols = org[1] + np.arange(h["in_cols"]) - h["q_in1"]
+                    ch0 = k * h["toc"] if h["in_sliced"] else 0
+                    inside = (((rows >= 0) & (rows < hh))[:, None]
+                              & ((cols >= 0) & (cols < ww))[None, :])
+                    src = x[n][np.clip(rows, 0, hh - 1)][:, np.clip(
+                        cols, 0, ww - 1)][..., ch0:ch0 + h["in_c"]]
+                    src = np.where(inside[..., None], src.astype(np.int64),
+                                   h["fill0"])
+                    flat, ps_in, src_rows, src_cols = (
+                        strided(src, h["in_ps"]), h["in_ps"], h["in_rows"],
+                        h["in_cols"])
+                    for i, s in enumerate(st):
+                        c0 = k * h["toc"] if s["sliced"] else 0
+                        R, C, CO = s["rows"], s["cols"], s["cout"]
+                        view = flat.reshape(-1, src_cols, ps_in)
+                        assert view.shape[2] >= s["cin"]
+                        out_org = (s["or0"] if s["or0"] >= 0
+                                   else j * s["fout"],
+                                   s["oc0"] if s["oc0"] >= 0
+                                   else jw * s["foutw"])
+                        # the input row and column each output reads first,
+                        # clamped so its taps stay inside the window
+                        row0 = np.clip(np.arange(R) * s["sh"] + out_org[0]
+                                     * s["sh"] - org[0], 0, src_rows
+                                     - s["dh"] * (s["kh"] - 1) - 1)
+                        col0 = np.clip(np.arange(C) * s["sw"] + out_org[1]
+                                     * s["sw"] - org[1], 0, src_cols
+                                     - s["dw"] * (s["kw"] - 1) - 1)
+                        org = out_org
+                        if s["type"] == 0:
+                            cinp = -(-s["cin"] // 4) * 4
+                            kreal = s["kh"] * s["kw"] * cinp
+                            koff = np.zeros(s["kp"] // 4, np.int64)
+                            for e in range(kreal // 4):
+                                tap, ic = divmod(4 * e, cinp)
+                                ki, kj = divmod(tap, s["kw"])
+                                koff[e] = ((ki * s["dh"] * src_cols
+                                            + kj * s["dw"]) * ps_in + ic)
+                            m = np.arange(R * C)
+                            px = (row0[m // C] * src_cols
+                                  + col0[m % C]) * ps_in
+                            a = flat[(px[:, None, None] + koff[None, :, None]
+                                      + np.arange(4)[None, None, :])]
+                            a = a.reshape(R * C, s["kp"])
+                            panel = packed[i][c0:c0 + CO]
+                            assert panel.shape[1] == s["kp"]
+                            # int8 products summed in float64: exact, as
+                            # every sum stays far below 2^53
+                            acc = (a.astype(np.float64) @ panel.T.astype(
+                                np.float64)).astype(np.int64)
+                            v = (acc + bias[i][c0:c0 + CO]).reshape(R, C, CO)
+                            v = _rshift(v, s["shift"])
+                        else:
+                            win = view[..., :s["cin"]]
+
+                            def tap(ki, kj):
+                                return win[row0 + ki][:, col0 + kj]
+                        if s["type"] == 1:
+                            ws = [tap(ki, kj) for ki in range(s["kh"])
+                                  for kj in range(s["kw"])]
+                            if s["pkind"] == 0:
+                                v = np.max(ws, axis=0)
+                            else:
+                                t = np.sum(ws, axis=0)
+                                v = np.sign(t) * ((np.abs(t) + s["cnt"] // 2)
+                                                  // s["cnt"])
+                        elif s["type"] == 2:
+                            side = smap[i][n].astype(np.int64)
+                            sr = org[0] + np.arange(R) - s["q0"]
+                            sc = org[1] + np.arange(C) - s["q1"]
+                            ok = (((sr >= 0) & (sr < side.shape[0]))[:, None]
+                                  & ((sc >= 0) & (sc < side.shape[1]))[None, :])
+                            sv = side[np.clip(sr, 0, side.shape[0] - 1)][
+                                :, np.clip(sc, 0, side.shape[1] - 1)][
+                                ..., c0:c0 + CO]
+                            v = (_rshift(tap(0, 0), s["shift"])
+                                 + _rshift(np.where(ok[..., None], sv, 0),
+                                           s["s_side"]))
+                        if s["relu"]:
+                            v = np.maximum(v, 0)
+                        v = np.clip(v, -128, 127)
+                        if s["out_buf"] == 2:
+                            r0, cc0 = j * h["th"], jw * h["tw"]
+                            r1, c1 = min(oh, r0 + R), min(ow, cc0 + C)
+                            out[n, r0:r1, cc0:c1, c0:c0 + CO] = \
+                                v[:r1 - r0, :c1 - cc0]
+                        else:
+                            pr = org[0] + np.arange(R)[:, None]
+                            pc = org[1] + np.arange(C)[None, :]
+                            valid = ((pr >= s["q0"]) & (pr < s["q0"] + s["true_h"])
+                                     & (pc >= s["q1"])
+                                     & (pc < s["q1"] + s["true_w"]))
+                            v = np.where(valid[..., None], v, s["fill_next"])
+                            assert s["ps"] % 4 == 0 and s["ps"] >= CO
+                            flat, ps_in, src_rows, src_cols = \
+                                strided(v, s["ps"]), s["ps"], R, C
+    return out.astype(np.int8)
 
 
 # Horizontal launches (h, w, ic, oc, kh, kw, stride, pad): GoogLeNet-224's
