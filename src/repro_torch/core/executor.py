@@ -24,8 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import int8_ops
+from repro_torch.core.lower import FusedLaunch
 from repro_torch.core.quantize import QuantizedModel
 from repro_torch.core.xgraph import XGraph, _padding
+from repro_torch.kernels.conv_fused import ops as fused_ops
+from repro_torch.obs.trace import TRACER
 
 
 def resolve_device(device=None) -> torch.device:
@@ -280,8 +283,6 @@ class Int8Executor:
             for name in qm.weights}
         self._prepared = None
         if self.program is not None:
-            from repro_torch.kernels.conv_fused import ops as fused_ops
-            from repro_torch.core.lower import FusedLaunch
             self._prepared = [
                 fused_ops.prepare_launch(item, qm, self.device)
                 if isinstance(item, FusedLaunch) else None
@@ -317,21 +318,47 @@ class Int8Executor:
         g, qm = self.g, self.qm
         env = {name: x for name in self._inputs}
         if self.program is not None:
-            from repro_torch.core.lower import FusedLaunch
-            from repro_torch.kernels.conv_fused import ops as fused_ops
-            for item, prep in zip(self.program.items, self._prepared):
-                if isinstance(item, FusedLaunch):
-                    env.update(fused_ops.run_launch(item, env, prepared=prep))
-                else:
-                    for name in item.nodes:
-                        env[name] = _int8_node(g, g.nodes[name], env, qm,
-                                               self._wts)
+            steps = zip(self.program.items, self._prepared)
+            if TRACER.enabled:
+                batch = int(x.shape[0])
+                for i, (item, prep) in enumerate(steps):
+                    name, span = self._item_span(i, item, batch)
+                    with torch.profiler.record_function(name):
+                        self._step(item, prep, env, span)
+            else:
+                for item, prep in steps:
+                    self._step(item, prep, env)
         else:
             for group in self.groups:
                 for name in group:
                     env[name] = _int8_node(g, g.nodes[name], env, qm,
                                            self._wts)
         return {o: env[o] for o in self._outputs}
+
+    def _step(self, item, prep, env: dict, span=None) -> None:
+        """Run one item of the program into ``env``.  ``span`` times the
+        item's device work: a fused launch's kernel alone (``run_launch``
+        opens it after the launch's host preparation), or every node of a
+        fallback."""
+        if isinstance(item, FusedLaunch):
+            env.update(fused_ops.run_launch(item, env, prepared=prep,
+                                            span=span))
+        else:
+            with span if span is not None else contextlib.nullcontext():
+                for name in item.nodes:
+                    env[name] = _int8_node(self.g, self.g.nodes[name], env,
+                                           self.qm, self._wts)
+
+    def _item_span(self, i: int, item, batch: int):
+        """Item ``i``'s name, ``item<i>:<kind>:<first node>``, for its
+        profiler range, and its device span of that name, whose args say
+        which launch it is and at what batch."""
+        kind = item.kind if isinstance(item, FusedLaunch) else "fallback"
+        name = f"item{i}:{kind}:{item.nodes[0]}"
+        out = getattr(item, "out_name", "") or item.nodes[-1]
+        return name, TRACER.device_span(name, self.device, cat="executor",
+                                        index=i, kind=kind, out=out,
+                                        batch=batch)
 
     def __call__(self, x) -> dict:
         """{graph output: tensor on the executor's device}."""

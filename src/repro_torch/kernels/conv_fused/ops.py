@@ -22,6 +22,7 @@ launches that ran at one.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -36,6 +37,11 @@ I8_MIN = -128
 LAUNCHES = {"fused_chain": 0, "fused_horizontal": 0}
 PLAIN_CALLS = {"fused_chain": 0, "fused_horizontal": 0}
 TILE_RECORDS = {"applied": 0}
+
+
+def _opened(span):
+    """``span`` (a context manager), or one that does nothing."""
+    return span if span is not None else contextlib.nullcontext()
 
 
 def reset_counts() -> None:
@@ -534,7 +540,7 @@ def _chain_call(chain, oh, ow, oc, tile, x_geom, w_shapes, b_shapes,
 
 
 def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile,
-                  packed=None):
+                  packed=None, span=None):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"fused_chain: no kernel for device {dev}")
@@ -576,10 +582,11 @@ def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile,
         ptrs[4 + 3 * i] = sd.data_ptr()
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.repro_fused_chain(
-        desc.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(len(desc)),
-        ptrs.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(n_blocks),
-        ctypes.c_int(smem), ctypes.c_void_p(stream))
+    with _opened(span):
+        rc = lib.repro_fused_chain(
+            desc.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(len(desc)),
+            ptrs.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(n_blocks),
+            ctypes.c_int(smem), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_chain launch failed: "
                            f"{build.error(lib, rc)}")
@@ -588,20 +595,23 @@ def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile,
 
 
 def fused_chain(x, weights, biases, sides, *, chain, oh, ow, oc,
-                tile=None, packed=None):
+                tile=None, packed=None, span=None):
     """Run a lowered chain.  x (N,H,W,C) int8 unpadded; one (KH,KW,IC,OC)
     int8 weight and (OC,) int32 bias per conv stage; one int8 side per elt
     stage.  ``tile`` (th, tw, toc) overrides the card's tile choice;
     ``packed`` is ``pack_chain_weights`` of each weight, made once by the
     caller (the kernel packs them itself without it, the plain version
-    ignores it).  Not differentiable: raises under autograd."""
+    ignores it).  ``span``, a context manager, encloses the kernel's launch
+    alone, after its host preparation (the plain version's whole run).
+    Not differentiable: raises under autograd."""
     refuse_autograd("fused_chain", x, *weights, *biases, *sides)
     if x.device.type == "cpu":
         PLAIN_CALLS["fused_chain"] += 1
-        return fused_chain_plain(x, weights, biases, sides, chain=chain,
-                                 oh=oh, ow=ow, oc=oc)
+        with _opened(span):
+            return fused_chain_plain(x, weights, biases, sides, chain=chain,
+                                     oh=oh, ow=ow, oc=oc)
     return _launch_chain(x, weights, biases, sides, chain=chain, oh=oh,
-                         ow=ow, oc=oc, tile=tile, packed=packed)
+                         ow=ow, oc=oc, tile=tile, packed=packed, span=span)
 
 
 # ------------------------------------------------------- horizontal kernel
@@ -648,7 +658,7 @@ def horizontal_plan(m: int, n: int, k: int, n_sm: int = N_SM) -> dict:
 
 
 def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad,
-                       packed=None):
+                       packed=None, span=None):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"fused_horizontal: no kernel for device {dev}")
@@ -679,28 +689,31 @@ def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad,
     m = n * oh * ow
     out = torch.empty((n, oh, ow, oc), dtype=torch.int8, device=dev)
     if out.numel() == 0:
-        return out
+        with _opened(span):
+            return out
     plan = horizontal_plan(m, oc, kh * kw * ic)
     np_, kp = packed["w"].shape
     vec = (ic % 16 == 0 and x.data_ptr() % 16 == 0
            and all(s % 16 == 0 for s in x.stride()[:3]))
-    scratch = None
-    if plan["split"] > 1:   # partial sums, then one counter per tile
-        gx, gy, _ = plan["grid"]
-        scratch = torch.zeros(m * np_ + gx * gy, dtype=torch.int32,
-                              device=dev)
     dims = np.array([n, h, wd, ic, *x.stride()[:3], kh, kw, sh, sw, ph, pw,
                      oh, ow, oc, kp, np_, plan["split"], plan["bm"],
                      int(vec)], np.int32)
-    ptrs = np.array([x.data_ptr(), packed["w"].data_ptr(),
-                     packed["b"].data_ptr(), packed["shift"].data_ptr(),
-                     packed["relu"].data_ptr(), out.data_ptr(),
-                     0 if scratch is None else scratch.data_ptr()], np.int64)
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.repro_fused_horizontal(
-        dims.ctypes.data_as(ctypes.c_void_p),
-        ptrs.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
+    with _opened(span):
+        scratch = None
+        if plan["split"] > 1:   # partial sums, then one counter per tile
+            gx, gy, _ = plan["grid"]
+            scratch = torch.zeros(m * np_ + gx * gy, dtype=torch.int32,
+                                  device=dev)
+        ptrs = np.array([x.data_ptr(), packed["w"].data_ptr(),
+                         packed["b"].data_ptr(), packed["shift"].data_ptr(),
+                         packed["relu"].data_ptr(), out.data_ptr(),
+                         0 if scratch is None else scratch.data_ptr()],
+                        np.int64)
+        rc = lib.repro_fused_horizontal(
+            dims.ctypes.data_as(ctypes.c_void_p),
+            ptrs.ctypes.data_as(ctypes.c_void_p), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_horizontal launch failed: "
                            f"{build.error(lib, rc)}")
@@ -709,19 +722,21 @@ def _launch_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad,
 
 
 def fused_horizontal(x, w, b, shift_vec, relu_vec, *, stride, pad,
-                     packed=None):
+                     packed=None, span=None):
     """Sibling convs over OC-stacked weights w (KH,KW,IC,ΣOC) int8 with bias
     b and per-channel shift/ReLU vectors (ΣOC,) int32.  ``packed`` is
     ``pack_horizontal`` of the same operands, made once by the caller; the
     kernel packs them itself without it, the plain version ignores it.
-    Not differentiable: raises under autograd."""
+    ``span`` encloses the launch's device work alone, as in
+    ``fused_chain``.  Not differentiable: raises under autograd."""
     refuse_autograd("fused_horizontal", x, w, b, shift_vec, relu_vec)
     if x.device.type == "cpu":
         PLAIN_CALLS["fused_horizontal"] += 1
-        return fused_horizontal_plain(x, w, b, shift_vec, relu_vec,
-                                      stride=stride, pad=pad)
+        with _opened(span):
+            return fused_horizontal_plain(x, w, b, shift_vec, relu_vec,
+                                          stride=stride, pad=pad)
     return _launch_horizontal(x, w, b, shift_vec, relu_vec, stride=stride,
-                              pad=pad, packed=packed)
+                              pad=pad, packed=packed, span=span)
 
 
 # ------------------------------------------------------------ executor hook
@@ -791,8 +806,8 @@ def launch_tile(launch, in_shape, conv_ocs) -> tuple | None:
     return tile
 
 
-def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
-               ) -> dict:
+def run_launch(launch, env: dict, qm=None, prepared: dict | None = None,
+               span=None) -> dict:
     """Execute one FusedLaunch; returns {tensor name: int8 tensor}.
 
     A chain launch with a tile record (``launch.tile``) runs at that
@@ -804,7 +819,11 @@ def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
     ``horizontal_mma_kernel`` is an implicit GEMM whose plan (rows per
     tile, K split; ``horizontal_plan``) depends only on M, N and K, so a
     (t_h, t_w, t_oc) has no knob to set there.  The tile search records
-    horizontal launches with no tile (``source: "card_plan"``)."""
+    horizontal launches with no tile (``source: "card_plan"``).
+
+    ``span``, a context manager (the executor's device span of the item),
+    encloses the kernel's launch alone: the host's preparation before it
+    does not count as the item's device time."""
     x = env[launch.in_name]
     if prepared is None:
         prepared = prepare_launch(launch, qm, x.device)
@@ -813,7 +832,7 @@ def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
                              prepared["shift"], prepared["relu"],
                              stride=tuple(launch.stride),
                              pad=tuple(launch.pad),
-                             packed=prepared.get("packed"))
+                             packed=prepared.get("packed"), span=span)
         outs, off = {}, 0
         for m, oc_m, _, _ in launch.members:
             outs[m] = y[..., off:off + oc_m]
@@ -832,7 +851,7 @@ def run_launch(launch, env: dict, qm=None, prepared: dict | None = None
         TILE_RECORDS["applied"] += 1
     y = fused_chain(x, weights, prepared["biases"], sides,
                     chain=launch.stages, oh=oh, ow=ow, oc=oc, tile=tile,
-                    packed=prepared.get("packed"))
+                    packed=prepared.get("packed"), span=span)
     return {launch.out_name: y}
 
 

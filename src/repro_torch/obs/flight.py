@@ -1,4 +1,4 @@
-# Copied from src/repro/obs/flight.py; imports point at repro_torch.
+# Port of src/repro/obs/flight.py; records also carry done_s.
 """Per-request flight recorder: the last N requests, ready for forensics.
 
 Latency histograms tell you *that* a gold tenant blew its p99; they cannot
@@ -53,6 +53,7 @@ class FlightRecord:
     status: str                   # "ok" | "error" | "rejected"
     error: str | None = None
     drift: dict | None = None     # tenant drift summary at record time
+    done_s: float | None = None   # the batch's completion on the clock
 
     def to_json(self) -> dict:
         d = dataclasses.asdict(self)
@@ -119,14 +120,14 @@ class FlightRecorder:
                execute_s: float = 0.0, latency_s: float = 0.0,
                batch_id: int = -1, batch_size: int = 0,
                batch_members=(), status: str = "ok",
-               error: str | None = None, drift: dict | None = None
-               ) -> FlightRecord:
+               error: str | None = None, drift: dict | None = None,
+               done_s: float | None = None) -> FlightRecord:
         rec = FlightRecord(req_id=req_id, tenant=tenant, submit_s=submit_s,
                            queue_wait_s=queue_wait_s, execute_s=execute_s,
                            latency_s=latency_s, batch_id=batch_id,
                            batch_size=batch_size,
                            batch_members=tuple(batch_members), status=status,
-                           error=error, drift=drift)
+                           error=error, drift=drift, done_s=done_s)
         with self._lock:
             self._records.append(rec)
             self.n_recorded += 1

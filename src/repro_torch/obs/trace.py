@@ -1,4 +1,5 @@
-# Copied from src/repro/obs/trace.py; imports point at repro_torch.
+# Port of src/repro/obs/trace.py: device spans and the device clock are the
+# port's own; the reference's engine-window rendering has no caller here.
 """Structured tracing: thread-safe spans + Chrome-trace/Perfetto export.
 
 The validation environment answers "is the output right"; this module answers
@@ -14,15 +15,27 @@ without bound; the newest spans win).  Spans come from three sources:
   renders as one stacked flame;
 * ``tracer.add_span(...)`` — an externally-timed interval (the serving path
   computes queue-wait from the batcher's own timestamps after the fact);
-* ``tracer.add_engine_windows(...)`` — the cycle simulator's per-engine
-  occupancy timeline (``simulator.engine_windows`` /
-  ``PipelineReport.engine_timeline``) rescaled to seconds, rendered as a
-  parallel "modeled" process so the predicted engine overlap sits next to the
-  measured wall time in one Perfetto view.
+* ``tracer.device_span("item3:chain:conv4", device)`` — the *device's* time
+  for the enclosed work: a pair of CUDA events recorded on the device's
+  current stream around it, mapped onto the tracer's clock by the device's
+  :class:`DeviceClock`.  The span stays pending until its end event has
+  completed and is resolved, without blocking, when :meth:`Tracer.records`
+  or :meth:`Tracer.to_chrome` reads the ring.  On a device whose work is
+  synchronous (the CPU) it is timed by the tracer's clock.
+
+A device's clock drifts against the host's (a few us a second on an
+H100), so a long-running server bounds the error with
+:meth:`Tracer.refresh`, which takes the anchor again once it is old.
+
+``tracer.context(batch_id=7)`` tags every span the calling thread records
+inside it (the serving worker tags each batch's spans with its id).
 
 ``to_chrome()`` emits the Chrome trace-event JSON (``ph:"X"`` complete events
 in microseconds + ``ph:"M"`` process/thread name metadata), loadable by
-Perfetto (https://ui.perfetto.dev) and ``chrome://tracing``.
+Perfetto (https://ui.perfetto.dev) and ``chrome://tracing``.  Its
+``otherData["origin_s"]`` is the time of ``ts`` 0 on the tracer's clock, so
+an exported trace can be laid on the axis of a ``torch.profiler`` trace that
+marks a known time of the same clock.
 
 The module-level :data:`TRACER` starts *disabled*: ``span()`` then returns a
 shared no-op context manager and ``add_span`` returns immediately, so
@@ -72,6 +85,142 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+# A device clock's anchor is taken again once it is this old and the
+# device's stream is idle, and at the latest once it is REANCHOR_MAX_S old.
+REANCHOR_IDLE_S = 1.0
+REANCHOR_MAX_S = 10.0
+# An anchor's event must complete within ANCHOR_SLACK_S of its record, in
+# one of ANCHOR_TRIES tries, for the anchor to be taken.
+ANCHOR_SLACK_S = 50e-6
+ANCHOR_TRIES = 4
+
+
+def cuda_events(device):
+    """The default event factory: for a CUDA device, ``(record, drain,
+    idle)`` — ``record()`` records a timing event on the device's current
+    stream and returns it, ``drain()`` waits for all of the device's work,
+    ``idle()`` says whether that stream has finished all its work.  None
+    for any other device: its work is synchronous, and the host clock times
+    it."""
+    if getattr(device, "type", str(device).split(":")[0]) != "cuda":
+        return None
+    import torch
+
+    def record():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+    return (record, lambda: torch.cuda.synchronize(device),
+            lambda: torch.cuda.current_stream(device).query())
+
+
+class HostMark:
+    """A point of a device whose work is synchronous: the host time it was
+    taken.  Complete as soon as it exists."""
+    __slots__ = ("_t",)
+
+    def __init__(self, t: float):
+        self._t = t
+
+    def query(self) -> bool:
+        return True
+
+    def wait(self) -> None:
+        pass
+
+    def seconds(self) -> float:
+        return self._t
+
+
+class DeviceMark:
+    """A point in a device's stream of work: an event, and the anchor of the
+    :class:`DeviceClock` it was recorded under."""
+    __slots__ = ("event", "_anchor", "_t_anchor")
+
+    def __init__(self, event, anchor, t_anchor: float):
+        self.event, self._anchor, self._t_anchor = event, anchor, t_anchor
+
+    def query(self) -> bool:
+        """Has the device reached this point (without blocking)?"""
+        return self.event.query()
+
+    def wait(self) -> None:
+        self.event.synchronize()
+
+    def seconds(self) -> float:
+        """When the device reached this point, on the host clock of the
+        :class:`DeviceClock` that recorded it.  Valid once :meth:`query` is
+        true."""
+        return self._t_anchor + self._anchor.elapsed_time(self.event) / 1e3
+
+
+class DeviceClock:
+    """Maps a device's events onto a host clock.  The anchor is an event
+    recorded on an idle stream, which the device reaches as it is recorded
+    (within about 10 us on an H100); its host time is the clock read just
+    before the record.  An event's host time is then the anchor's plus the
+    device time between the two (``elapsed_time``).  ``record``, ``drain``
+    and ``idle`` come from an event factory (:func:`cuda_events`, or fakes
+    in tests).
+
+    The device's clock drifts against the host's (an H100's ran 1-6 us a
+    second off ``time.monotonic``, either way), so the error grows with
+    the anchor's age: :meth:`refresh` keeps it young."""
+
+    def __init__(self, record, drain, idle, clock=time.monotonic):
+        self._record, self._drain, self._idle = record, drain, idle
+        self.clock = clock
+        self._anchor = None             # (event, host seconds)
+
+    def anchor(self, drain: bool = True) -> None:
+        """Take the anchor again, after all of the device's work
+        (``drain``: set-up, enabling a trace) or the work queued on the
+        current stream.  Another thread's work (a copy of answers, say) can
+        slip in ahead of the anchor, so the host clock is read again as
+        the event completes:
+        an anchor is kept only if that took ``ANCHOR_SLACK_S`` or less, of
+        ``ANCHOR_TRIES`` tries; otherwise the old one stays (the first
+        anchor keeps the closest try)."""
+        if drain:
+            self._drain()
+        best = None
+        for _ in range(ANCHOR_TRIES):
+            if not self._idle():
+                self._record().synchronize()
+            t = self.clock()
+            ev = self._record()
+            while not ev.query():       # no blocking wait: a thread that
+                pass                    # blocks can run again much later
+            slack = self.clock() - t
+            if best is None or slack < best[2]:
+                best = (ev, t, slack)
+            if slack <= ANCHOR_SLACK_S:
+                break
+        if self._anchor is None or best[2] <= ANCHOR_SLACK_S:
+            self._anchor = best[:2]
+
+    def refresh(self) -> None:
+        """Take the anchor again if it is ``REANCHOR_IDLE_S`` old and the
+        stream has nothing queued (an event and a wait of about 20 us), or
+        ``REANCHOR_MAX_S`` old whatever is queued (the wait then lasts until
+        the queued work has run).  The error from drift stays under the
+        drift's rate times ``REANCHOR_MAX_S``, and times ``REANCHOR_IDLE_S``
+        where the device goes idle that often.  Marks taken earlier keep
+        the anchor they were taken under."""
+        if self._anchor is None:
+            return
+        age = self.clock() - self._anchor[1]
+        if age >= REANCHOR_MAX_S or (age >= REANCHOR_IDLE_S
+                                     and self._idle()):
+            self.anchor(drain=False)
+
+    def mark(self) -> DeviceMark:
+        """Record an event now; the first mark takes the anchor."""
+        if self._anchor is None:
+            self.anchor()
+        return DeviceMark(self._record(), *self._anchor)
+
+
 class _Span:
     """Live span handle: records itself into the tracer on ``__exit__``."""
     __slots__ = ("_tracer", "name", "cat", "process", "track", "args",
@@ -82,7 +231,7 @@ class _Span:
         self._tracer = tracer
         self.name, self.cat, self.process = name, cat, process
         self.track = track
-        self.args = args
+        self.args = tracer._tagged(args)
 
     def set(self, **kw) -> None:
         """Attach/override args while the span is open."""
@@ -112,6 +261,51 @@ class _Span:
         return False
 
 
+class _DeviceSpan:
+    """Live device span: marks the device's stream on entry and exit and
+    hands the pair to the tracer, which resolves it once the end mark has
+    completed."""
+    __slots__ = ("_tracer", "_device", "name", "cat", "process", "track",
+                 "args", "_start")
+
+    def __init__(self, tracer: "Tracer", name: str, device, cat: str,
+                 process: str, track: str, args: dict):
+        self._tracer, self._device = tracer, device
+        self.name, self.cat, self.process = name, cat, process
+        self.track = track
+        self.args = tracer._tagged(args)
+
+    def __enter__(self):
+        self._start = self._tracer.mark(self._device)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            self.args.setdefault("error", exc_type.__name__)
+        self._tracer._add_pending(
+            (self._start, self._tracer.mark(self._device), self.name,
+             self.cat, self.process, self.track, self.args))
+        return False
+
+
+class _Context:
+    """Tags every span the calling thread records while it is open."""
+    __slots__ = ("_tracer", "_args", "_saved")
+
+    def __init__(self, tracer: "Tracer", args: dict):
+        self._tracer, self._args = tracer, args
+
+    def __enter__(self):
+        local = self._tracer._local
+        self._saved = getattr(local, "tags", None)
+        local.tags = {**(self._saved or {}), **self._args}
+        return self
+
+    def __exit__(self, *exc):
+        self._tracer._local.tags = self._saved
+        return False
+
+
 class Tracer:
     """Thread-safe span recorder with a bounded ring buffer.
 
@@ -119,10 +313,17 @@ class Tracer:
     the oldest (``n_dropped`` counts evictions).  ``clock`` must be monotonic;
     externally-timed spans (:meth:`add_span`) should use timestamps from the
     same clock or alignment across tracks is lost.
+
+    ``event_factory(device)`` gives a device's ``(record, drain, idle)``
+    for its :class:`DeviceClock`, or None for a device timed by ``clock``
+    (default :func:`cuda_events`).  Each device's clock is anchored at its
+    first mark, again each time the tracer is enabled, so a trace starts
+    from a fresh anchor, and wherever :meth:`refresh` finds it old.
     """
 
     def __init__(self, capacity: int = 65536, clock=time.monotonic,
-                 enabled: bool = False, registry=None):
+                 enabled: bool = False, registry=None,
+                 event_factory=cuda_events):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
@@ -134,6 +335,9 @@ class Tracer:
         self._size = 0
         self.n_recorded = 0
         self._local = threading.local()
+        self._event_factory = event_factory
+        self._clocks: dict = {}         # str(device) -> DeviceClock | None
+        self._pending: list = []        # device spans not yet complete
         # span-loss gauges, bound lazily on first record: ring occupancy and
         # drop count become scrapeable instead of living only inside the
         # Chrome export's otherData
@@ -146,6 +350,11 @@ class Tracer:
         return self._enabled
 
     def enable(self) -> None:
+        """Start recording; re-anchors every device clock (each drains its
+        device)."""
+        for clock in list(self._clocks.values()):
+            if clock is not None:
+                clock.anchor()
         self._enabled = True
 
     def disable(self) -> None:
@@ -163,6 +372,7 @@ class Tracer:
             self._buf = [None] * self.capacity
             self._head = self._size = 0
             self.n_recorded = 0
+            self._pending = []
         if self._g_spans is not None:
             self._g_spans.set(0)
             self._g_dropped.set(0)
@@ -212,7 +422,7 @@ class Tracer:
             return
         self._record(SpanRecord(name=name, start=float(start), end=float(end),
                                 cat=cat, process=process, track=track,
-                                args=dict(args or {})))
+                                args=self._tagged(dict(args or {}))))
 
     def instant(self, name: str, *, cat: str = "", process: str = "measured",
                 track: str = "", **args) -> None:
@@ -222,36 +432,95 @@ class Tracer:
         self._record(SpanRecord(name=name, start=now, end=now, cat=cat,
                                 process=process, track=track, args=args))
 
-    def add_engine_windows(self, windows: dict, freq_hz: float, *,
-                           origin: float | None = None,
-                           process: str = "modeled",
-                           cat: str = "modeled") -> int:
-        """Render a cycle-level engine timeline as spans.
+    def context(self, **args):
+        """Context manager: every span the calling thread records inside it
+        carries ``args`` (a span's own args win).  Tags even while disabled,
+        so a trace enabled in the middle of the block still sees them."""
+        return _Context(self, args)
 
-        ``windows`` is ``simulator.engine_windows`` output (or a
-        ``PipelineReport.engine_timeline``): engine -> [(start_cycles,
-        end_cycles, opcode, tag)].  Cycles are rescaled by ``freq_hz`` to
-        seconds and anchored at ``origin`` (default: now), one track per
-        engine — the predicted LOAD(i+1)-inside-CONV(i) overlap sits beside
-        the measured serve spans in the same exported view.  Returns the
-        number of spans recorded."""
+    def _tagged(self, args: dict) -> dict:
+        tags = getattr(self._local, "tags", None)
+        return {**tags, **args} if tags else args
+
+    # ------------------------------------------------------- device time
+    def device_clock(self, device) -> DeviceClock | None:
+        """``device``'s clock (made on first use), or None where the device
+        is timed by the host clock."""
+        key = str(device)
+        try:
+            return self._clocks[key]
+        except KeyError:
+            fns = self._event_factory(device)
+            clock = (DeviceClock(*fns, clock=self.clock) if fns is not None
+                     else None)
+            return self._clocks.setdefault(key, clock)
+
+    def refresh(self, device) -> None:
+        """Bound the drift of ``device``'s clock (:meth:`DeviceClock.refresh`;
+        nothing where the host clock times the device).  Call it where a
+        short wait is harmless, as the session does before each batch."""
+        clock = self.device_clock(device)
+        if clock is not None:
+            clock.refresh()
+
+    def mark(self, device):
+        """A mark of ``device``'s stream of work now (whether or not the
+        tracer is enabled): a :class:`DeviceMark`, or a :class:`HostMark`
+        where the host clock times the device."""
+        clock = self.device_clock(device)
+        return clock.mark() if clock is not None else HostMark(self.clock())
+
+    def device_span(self, name: str, device, *, cat: str = "device",
+                    process: str = "measured", track: str = "device",
+                    **args):
+        """Context manager timing the enclosed work on ``device`` (see the
+        module docstring).  No-op when disabled."""
         if not self._enabled:
-            return 0
-        origin = self.clock() if origin is None else origin
-        n = 0
-        for engine, rows in windows.items():
-            for s, e, opcode, tag in rows:
-                self._record(SpanRecord(
-                    name=f"{opcode}:{tag}", start=origin + s / freq_hz,
-                    end=origin + e / freq_hz, cat=cat, process=process,
-                    track=str(engine),
-                    args={"cycles": int(e - s), "tag": tag}))
-                n += 1
-        return n
+            return _NULL_SPAN
+        return _DeviceSpan(self, name, device, cat, process, track, args)
+
+    def _add_pending(self, span: tuple) -> None:
+        if isinstance(span[1], HostMark):
+            self._resolve_one(span)
+            return
+        with self._lock:
+            self._pending.append(span)
+            n = len(self._pending)
+        if n > self.capacity:           # nobody reads: keep memory bounded
+            self._resolve()
+            with self._lock:
+                lost = len(self._pending) - self.capacity
+                if lost > 0:
+                    del self._pending[:lost]
+                    self.n_recorded += lost
+
+    def _resolve_one(self, span: tuple) -> None:
+        start, end, name, cat, process, track, args = span
+        self._record(SpanRecord(name=name, start=start.seconds(),
+                                end=end.seconds(), cat=cat, process=process,
+                                track=track, args=args))
+
+    def _resolve(self) -> None:
+        """Record the pending device spans whose end has completed; never
+        waits for the device."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        still = []
+        for span in pending:
+            if span[1].query():
+                self._resolve_one(span)
+            else:
+                still.append(span)
+        if still:
+            with self._lock:
+                self._pending[:0] = still
 
     # ------------------------------------------------------------- reading
     def records(self) -> list[SpanRecord]:
-        """Snapshot of the ring buffer, oldest first."""
+        """Snapshot of the ring buffer, oldest first, after recording the
+        device spans that have completed."""
+        if self._pending:
+            self._resolve()
         with self._lock:
             if self._size < self.capacity:
                 return [r for r in self._buf[:self._size]]
@@ -263,7 +532,8 @@ class Tracer:
 
         Processes map to pids, tracks to tids (named via ``ph:"M"`` metadata
         events); spans become ``ph:"X"`` complete events with microsecond
-        ``ts``/``dur`` relative to the earliest recorded span."""
+        ``ts``/``dur`` relative to the earliest recorded span, whose start on
+        the tracer's clock is ``otherData["origin_s"]``."""
         recs = self.records()
         t0 = min((r.start for r in recs), default=0.0)
         pids: dict[str, int] = {}
@@ -289,7 +559,8 @@ class Tracer:
             })
         return {"traceEvents": events, "displayTimeUnit": "ms",
                 "otherData": {"n_dropped": self.n_dropped,
-                              "clock": "monotonic-relative"}}
+                              "clock": "monotonic-relative",
+                              "origin_s": t0}}
 
     def export(self, path: str) -> str:
         with open(path, "w") as f:

@@ -4,9 +4,12 @@ Port of ``src/repro/runtime/server.py``.  ``Server.submit`` is the whole
 client API — hand in one int8 image, get a future for its output dict.
 Queued requests are flushed as batches (see
 :mod:`repro_torch.runtime.batching`), each batch padded up to the nearest
-*allowed* size so only a handful of batch shapes is ever launched, and every
-completion is timestamped for the latency percentiles.  Labelled metrics,
-the flight recorder, the event log and the OpenMetrics endpoint
+*allowed* size so only a handful of batch shapes is ever launched.  A
+request's completion on the device (the session's ``mark_done``, a CUDA
+event after the batch's last item) ends its latency: the percentiles of
+``stats()``, the SLO cap's window, the histograms and the observer records
+all measure submit to the answer, not to the batch's enqueue.  Labelled
+metrics, the flight recorder, the event log and the OpenMetrics endpoint
 (``serve_metrics``) are the observability plane of ``repro_torch.obs``.
 """
 from __future__ import annotations
@@ -31,10 +34,11 @@ class Server:
                  observers=None, flight=None, events=None):
         """``target_p99_ms`` turns on latency-SLO-aware batch sizing: the
         server watches the p99 of the batcher's bounded latency window
-        (last ``slo_window`` submit->result samples) and walks the effective
-        max batch down the allowed-size ladder while the SLO is violated —
-        a smaller cap both shortens the batch-forming wait and the batched
-        launch itself — then back up once p99 clears the target with margin.
+        (last ``slo_window`` submit->completion samples) and walks the
+        effective max batch down the allowed-size ladder while the SLO is
+        violated — a smaller cap both shortens the batch-forming wait and
+        the batched launch itself — then back up once p99 clears the target
+        with margin.
         ``max_batch`` stays the hard ceiling.  ``labels`` tags every metric
         this server emits (multi-tenant hosts label per-model).
 
@@ -84,18 +88,21 @@ class Server:
             self._warmup()
         self._batcher = DynamicBatcher(self._run, max_batch=max_batch,
                                        max_latency_s=max_latency_s,
-                                       labels=self.labels, observers=obs)
+                                       labels=self.labels, observers=obs,
+                                       mark_done=session.mark_done)
 
     def _warmup(self) -> None:
         """Run every allowed batch shape once through the session's launch
         path (on its device), so first-use costs (the kernel build, CUDA
         context and allocator growth) never land inside a latency-sensitive
         flush.  Warmup does not count as served traffic (``_launch`` bumps
-        no counters)."""
+        no counters).  Its last mark anchors the device clock here, not at
+        the first served batch."""
         shape = self.session.graph.shape(
             next(n.name for n in self.session.graph if n.op == "input"))
         for s in self.allowed_sizes:
             self.session._launch(np.zeros((s,) + tuple(shape[1:]), np.int8))
+        self.session.mark_done()
 
     def _pad_size(self, n: int) -> int:
         for s in self.allowed_sizes:

@@ -183,19 +183,37 @@ class Session:
     def run_batch(self, xs, pad_to: int | None = None) -> list[dict]:
         """Serve N queued requests as ONE batched launch; returns one output
         dict per request (leading batch dim 1, so results are directly
-        comparable with per-request execution)."""
+        comparable with per-request execution).  First the device clock's
+        anchor is taken again if it is old (``Tracer.refresh``), so the
+        device's completion times keep to the host clock however long the
+        session serves.  While the tracer is enabled, the batch's device
+        time, from before the stacking's first copy to after its last item,
+        is the ``batch`` span of the ``device`` track."""
         from repro_torch.obs.trace import TRACER
-        with TRACER.span("pad", cat="serve", track="batch", n=len(xs),
-                         pad_to=pad_to):
-            x, n = self._stack(xs, pad_to=pad_to)
-        with TRACER.span("launch", cat="serve", track="batch",
-                         batch=int(x.shape[0])):
-            out = self._launch(x)
+        TRACER.refresh(self.device)
+        with TRACER.device_span("batch", self.device, cat="serve",
+                                n=len(xs), pad_to=pad_to):
+            with TRACER.span("pad", cat="serve", track="batch", n=len(xs),
+                             pad_to=pad_to):
+                x, n = self._stack(xs, pad_to=pad_to)
+            with TRACER.span("launch", cat="serve", track="batch",
+                             batch=int(x.shape[0])):
+                out = self._launch(x)
         self.n_runs += 1
         self.images_served += n
         if self.drift is not None:
             self.drift.observe_launch()
         return [{k: v[i:i + 1] for k, v in out.items()} for i in range(n)]
+
+    def mark_done(self):
+        """A mark after the work enqueued so far on the session's device
+        (``obs.trace.DeviceMark``: ``query``, ``wait``, ``seconds`` on the
+        tracer's clock); None on the CPU, whose work is done when the
+        executor returns.  The batcher takes one after each batch."""
+        if self.device.type != "cuda":
+            return None
+        from repro_torch.obs.trace import TRACER
+        return TRACER.mark(self.device)
 
     # -------------------------------------------------------- schedule view
     def pipeline_report(self, n_requests: int, ddr_slots: int | None = 2,

@@ -567,3 +567,69 @@ def test_kernels_without_backward_refuse_autograd_on_card(dev):
         ops.fused_chain(x, [x], [vec], [], chain=(), oh=4, ow=4, oc=8)
     with torch.no_grad():
         assert flash.flash_attention(q, k, k).shape == q.shape
+
+
+def test_device_spans_and_completions_on_card(dev, monkeypatch):
+    """The tracer's device clock on the card: one span per program item,
+    in order, inside the host's bracket of the call; and a server whose
+    records end at their batch's completion, after submit and before the
+    answers reach the host."""
+    import time
+
+    from repro_torch.cnn import init_params
+    from repro_torch.hw import ZU2
+    from repro_torch.obs.trace import TRACER
+    from repro_torch.runtime import Server, Session
+    g = build_graph("repro_torch", "toy", 16)
+    x = np.random.default_rng(0).standard_normal(
+        g.shape("data")).astype(np.float32)
+    qm = quantize.calibrate(g, init_params(g), x, lambda g_, p_, x_:
+                            executor.run_float(g_, p_, x_, device=dev))
+    xq = quantize.quantize_to(x, qm.f_a["data"])
+    sess = Session(g, strategy("repro_torch", g), ZU2, qm, device=dev)
+    sess.run(xq)
+    torch.cuda.synchronize()
+    TRACER.clear()
+    TRACER.enable()
+    try:
+        before = time.monotonic()
+        sess.run(xq)
+        torch.cuda.synchronize()
+        after = time.monotonic()
+        spans = [r for r in TRACER.records() if r.track == "device"]
+    finally:
+        TRACER.disable()
+        TRACER.clear()
+    assert len(spans) == len(sess.program.items)
+    slack = 1e-4                        # the anchor's reading of the host
+    assert before - slack <= spans[0].start
+    assert spans[-1].end <= after + slack
+    for a, b in zip(spans, spans[1:]):
+        assert a.start <= a.end <= b.start + 1e-6
+
+    recs = []
+    with Server(sess, max_batch=4, max_latency_s=0.01,
+                observers=[recs.append]) as server:
+        futs = [server.submit(xq[0]) for _ in range(4)]
+        (name,) = sess.outputs
+        out = torch.cat([f.result(timeout=60)[name] for f in futs]).cpu()
+        t_host = time.monotonic()
+    assert out.shape[0] == 4 and len(recs) == 4
+    for r in recs:
+        assert r["submit_s"] <= r["done_s"] <= t_host
+        assert r["latency_s"] == r["done_s"] - r["submit_s"]
+
+    # the idle card's clock takes its anchor again once it is old, and a
+    # mark under the new anchor maps inside the host's bracket of it
+    from repro_torch.obs import trace
+    clock = TRACER.device_clock(sess.device)
+    torch.cuda.synchronize()
+    first = clock._anchor
+    monkeypatch.setattr(trace, "REANCHOR_IDLE_S", 0.0)
+    clock.refresh()
+    assert clock._anchor is not first
+    before = time.monotonic()
+    m = TRACER.mark(sess.device)
+    m.wait()
+    after = time.monotonic()
+    assert before - slack <= m.seconds() <= after + slack
