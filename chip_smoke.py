@@ -936,7 +936,7 @@ def artifact_path(sess, imgs, dev) -> dict:
     ops.reset_counts()                       # ---- reopened path starts
     outs = [reopened.run(x) for x in imgs]
     torch.cuda.synchronize()
-    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    launches, plain = conv_launches(), dict(ops.PLAIN_CALLS)
     # ---- reopened path ends
     n = len(imgs)
     if launches != {"fused_chain": 42 * n, "fused_horizontal": 9 * n} or any(
@@ -983,7 +983,7 @@ def slice_phase(models, dev, card: str) -> dict:
     compile_s = time.perf_counter() - t0
     out = sess.run(imgs[0])
     torch.cuda.synchronize()
-    per_image = dict(ops.LAUNCHES)
+    per_image = conv_launches()
     plain = dict(ops.PLAIN_CALLS)
     if sess.cache_hit:
         raise AssertionError("the first Session did not compile")
@@ -1005,7 +1005,7 @@ def slice_phase(models, dev, card: str) -> dict:
     wall = time.perf_counter() - t0
     stats = server.stats()
     server.close()
-    launches = dict(ops.LAUNCHES)            # ---- main path ends here
+    launches = conv_launches()            # ---- main path ends here
     if any(ops.PLAIN_CALLS.values()):
         raise AssertionError(f"plain calls on the main path "
                              f"{ops.PLAIN_CALLS}")
@@ -1210,7 +1210,7 @@ def tune_phase(m, dev, card: str) -> dict:
         sess = Session(g, strat, ZU2, qm, device=dev, profile=prof)
         outs = [sess.run(x) for x in imgs]
         torch.cuda.synchronize()
-        launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        launches, plain = conv_launches(), dict(ops.PLAIN_CALLS)
         applied = ops.TILE_RECORDS["applied"]   # ---- this path ends here
         if applied != records * len(imgs) or any(plain.values()):
             raise AssertionError(f"{name} session: {applied} tile records "
@@ -1318,7 +1318,7 @@ def check_kernel_launches(counter: dict, per_launch: dict, what: str
     torch.cuda.synchronize()
     want = {k: sum(counter[name] * per_launch[name][k] for name in counter)
             for k in ("fused_chain", "fused_horizontal")}
-    got, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+    got, plain = conv_launches(), dict(ops.PLAIN_CALLS)
     if got != want or any(plain.values()):
         raise AssertionError(f"{what}: kernel launches {got} for executor "
                              f"launches {counter} (want {want}), plain "
@@ -1781,6 +1781,8 @@ def zoo_plan(name, target, m, gen, dev, card) -> dict:
     log(f"phase 14, {what}: fused_chain == plain on "
         f"{len(seen)} distinct chain launches, the kernel launched for "
         f"each; among them {named or 'none named'}")
+    served = (served_batch_check(chains, g, qm, gen, dev, what)
+              if (name, target) == ("vgg16", "ZU2") else None)
 
     xq = quantize.quantize_to(m["x"], qm.f_a["data"])
     imgs = quantized_images(m, ZOO_REQUESTS, SEED + 14)
@@ -1794,7 +1796,7 @@ def zoo_plan(name, target, m, gen, dev, card) -> dict:
         ops.reset_counts()                  # ---- main path starts here
         out = sess.run(imgs[0])
         torch.cuda.synchronize()
-        per_image, plain = dict(ops.LAUNCHES), dict(ops.PLAIN_CALLS)
+        per_image, plain = conv_launches(), dict(ops.PLAIN_CALLS)
         # ---- main path ends here
     finally:
         undo()
@@ -1855,10 +1857,48 @@ def zoo_plan(name, target, m, gen, dev, card) -> dict:
            "chain_bound_by": ("bytes" if nbytes / MEM_BW
                               >= 2 * macs / INT8_PEAK else "operations"),
            "chain_bytes": nbytes, "chain_macs": macs}
+    if served:
+        res["served_batch"] = served
     if name == "vgg16":
         res["int8_gop_per_image"] = 2 * macs / 1e9
         res["int8_top_per_s"] = 2 * macs / (chain_ms * 1e-3) / 1e12
     return res
+
+
+SERVED_BATCH = 64    # the batch vgg16-224.zu2.offline-q128 serves
+
+
+def served_batch_check(chains, g, qm, gen, dev, what: str) -> dict:
+    """Every chain launch of the plan at the benchmark's served batch, at
+    the chooser's tile there (blocks of several images, ragged groups,
+    ring stages), against the plain version on the same inputs; some
+    launch must take more than one image a block and some conv stage must
+    run through the weight ring."""
+    from repro_torch.kernels.conv_fused import ops
+
+    n, rings, tiles = SERVED_BATCH, 0, []
+    for launch in chains:
+        prep = ops.prepare_launch(launch, qm, dev)
+        args, kw = chain_args(launch, g, prep, gen, dev, n=n)
+        in_shape = (n,) + tuple(g.shape(launch.in_name)[1:])
+        oh, ow, oc, c_in, oc_list = ops.launch_geometry(
+            launch, in_shape, [w.shape[-1] for w in prep["weights"]])
+        tile = ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in, n,
+                                     oc_list)
+        before = ops.LAUNCHES["fused_chain_ring_stages"]
+        got = ops.fused_chain(*args, **kw, packed=prep["packed"])
+        rings += ops.LAUNCHES["fused_chain_ring_stages"] - before
+        check_equal(got, ops.fused_chain_plain(*args, **kw),
+                    f"{what}: chain {launch.nodes} at batch {n}, tile {tile}")
+        tiles.append(list(tile))
+        del args, got
+    if rings == 0 or max(t[3] for t in tiles) < 2:
+        raise AssertionError(f"{what} at batch {n}: {rings} ring stages, "
+                             f"tiles {tiles}")
+    log(f"phase 14, {what}: fused_chain == plain at batch {n} on "
+        f"{len(chains)} chain launches, {rings} ring stages, tiles {tiles}")
+    return {"batch": n, "launches_checked": len(chains),
+            "ring_stages": rings, "tiles": tiles}
 
 
 def zoo_cnn_phase(models, dev, card: str) -> dict:
@@ -1984,6 +2024,14 @@ def _kernel_ops():
 def reset_all_counts() -> None:
     for mod in _kernel_ops():
         mod.reset_counts()
+
+
+def conv_launches() -> dict:
+    """The conv kernels' launch counts: ``ops.LAUNCHES`` without its count
+    of the conv stages the chain launches ran through the weight ring."""
+    from repro_torch.kernels.conv_fused import ops
+
+    return {k: ops.LAUNCHES[k] for k in ("fused_chain", "fused_horizontal")}
 
 
 def all_counts() -> tuple[dict, dict]:

@@ -322,7 +322,7 @@ class Int8Executor:
             if TRACER.enabled:
                 batch = int(x.shape[0])
                 for i, (item, prep) in enumerate(steps):
-                    name, span = self._item_span(i, item, batch)
+                    name, span = self._item_span(i, item, batch, env)
                     with torch.profiler.record_function(name):
                         self._step(item, prep, env, span)
             else:
@@ -349,16 +349,24 @@ class Int8Executor:
                     env[name] = _int8_node(self.g, self.g.nodes[name], env,
                                            self.qm, self._wts)
 
-    def _item_span(self, i: int, item, batch: int):
+    def _item_span(self, i: int, item, batch: int, env: dict):
         """Item ``i``'s name, ``item<i>:<kind>:<first node>``, for its
         profiler range, and its device span of that name, whose args say
-        which launch it is and at what batch."""
+        which launch it is and at what batch; a chain launch's also say how
+        many images a block takes (``ni``) and the weight bytes its blocks
+        fetch by the planner's count (``w_fetch_bytes``)."""
         kind = item.kind if isinstance(item, FusedLaunch) else "fallback"
         name = f"item{i}:{kind}:{item.nodes[0]}"
         out = getattr(item, "out_name", "") or item.nodes[-1]
+        plan = {}
+        if kind == "chain":
+            plan = fused_ops.launch_plan_args(
+                item, tuple(env[item.in_name].shape),
+                [self.g.shape(st[1])[3] for st in item.stages
+                 if st[0] == "conv"])
         return name, TRACER.device_span(name, self.device, cat="executor",
                                         index=i, kind=kind, out=out,
-                                        batch=batch)
+                                        batch=batch, **plan)
 
     def __call__(self, x) -> dict:
         """{graph output: tensor on the executor's device}."""

@@ -22,26 +22,46 @@
 // depend on.
 //
 // Each conv stage is an implicit GEMM on the int8 tensor cores (mma.sync
-// m16n8k32 s8 x s8 -> s32): M = the stage's output pixels, N = its output
-// channels (the block's OC tile from the last conv on), K = kh * kw * cin.
-// The launcher packs each conv's weights once (ops.pack_chain_weights):
-// OC-major, K contiguous in (kh, kw, ic) order with ic padded to a multiple
-// of 4, K padded to 32 with zeros.  The block stages the rows of its OC
-// tile into shared memory by cp.async, the next conv's panel loading while
-// this stage computes, and reads B fragments with ldmatrix from rows padded
-// to an odd number of 16-byte chunks (no bank conflicts).  A fragments are
-// 4-byte loads from the int8 window itself: a table of each K group's
+// m16n8k32 s8 x s8 -> s32): M = the stage's output pixels over the block's
+// images, N = its output channels (the block's OC tile from the last conv
+// on), K = kh * kw * cin.  The launcher packs each conv's weights once
+// (ops.pack_chain_weights): OC-major, K contiguous in (kh, kw, ic) order
+// with ic padded to a multiple of 4, K padded to 32 with zeros.  A fragments
+// are 4-byte loads from the int8 window itself: a table of each K group's
 // offset in the window (tap row, tap column, input channel) is built once
 // per stage, so an A register is one load at pixel offset + table entry.
 // Windows keep a pixel stride of the channels rounded up to 4 (plus 16
 // bytes where that stride is a multiple of 32 words, which would put the 8
 // pixel rows of a fragment in one bank); the bytes past the channels are
 // never written and meet only zero weights.  conv1's 3-channel input takes
-// the same path with its pixels padded to 4 channels.  A warp takes
-// (16-pixel tile, 8 * NT-channel block) items in turn, NT = 4, 2 or 1 by
-// the stage's channels.  The epilogue, the pool and eltwise stages and the
-// window's pad-identity masking are those of the reference; the input
-// window is loaded in 16- or 4-byte words where channels and strides allow.
+// the same path with its pixels padded to 4 channels.
+//
+// A block takes ni images of the batch at one spatial tile (the last group
+// ragged), each image's windows one after the other in each buffer, so that
+// M spans the images.  The B operand reaches the tensor cores on one of two
+// paths, chosen by the planner from the shapes alone (ops._layout): a panel
+// that fits beside the windows is staged whole, the next conv's panel
+// loading by cp.async while this stage computes, and warps take (16-pixel,
+// 8 * NT-channel) items in turn, NT = 4, 2 or 1 by the stage's channels,
+// reading B with ldmatrix from rows padded to an odd number of 16-byte
+// chunks (no bank conflicts).  A panel that does not fit (bit i of ring_b)
+// streams through a ring of RING_SLOTS slots in shared memory, each
+// ring_ks bytes of K (128, or 64 where the windows leave less room) of up
+// to RING_ROWS weight rows: the stage runs as passes of a block-wide tile
+// (128 pixels x 128 channels, or 256 x 64 for 64 channels or fewer; each
+// warp 32 x 64) over the stage's full K.  Every thread copies its share of
+// a slot RING_AHEAD steps ahead with 16-byte cp.async and arrives on the
+// slot's "full" mbarrier when its copies land (cp.async.mbarrier.arrive);
+// each warp releases a slot on its "empty" mbarrier once its ldmatrix reads
+// are done; inside a step the next K step's fragments load while this
+// one's MMAs issue.  Each fetched weight byte so feeds a pass's pixels
+// (across the block's images), where a per-MMA load from device memory fed
+// one 16-pixel tile.  (One producer issuing cp.async.bulk copies a row at
+// a time measured about 6 us a slot, most likely the copy engine taking
+// the 128 small copies in turn; so every thread copies.)  The epilogue, the
+// pool and eltwise stages and the window's pad-identity masking are those
+// of the reference; the input window is loaded in 16- or 4-byte words where
+// channels and strides allow.
 //
 // horizontal_mma_kernel replaces fused_horizontal_pallas (same file, body
 // _horizontal_kernel): sibling convs over OC-stacked weights as one
@@ -58,7 +78,18 @@
 // they are built for latency: tensor cores, weights staged in 16-byte
 // copies, no index arithmetic per byte in the inner loops, and (chain) a
 // tile planner that trades per-block work against waves of blocks over the
-// 132 SMs (ops.choose_chain_tile).
+// 132 SMs (ops.choose_chain_tile).  At batch 64 (VGG16-224 served) the
+// chains do about 1 T int8 MACs a batch, so the card's bound is operations
+// (about 1 ms).  What paced them was the weight operand of the convs whose
+// panels do not fit in shared memory, fetched from device memory once per
+// 16-pixel tile (2.4 to 3.4 TB/s, about 80 GB a batch).  The ring and
+// blocks of ni images make each fetched byte feed a pass's pixels (about
+// 11 GB a batch for VGG16's items 1-7), and the planner charges each
+// block's fetched weight bytes when it picks (th, tw, toc, ni).  What bounds
+// each path now: the staged path, its warps' latency (few K steps an item,
+// an epilogue per output); the ring, the L2's stream of weight rows to the
+// blocks (about 2 TB/s measured with no MMA at all) and the MMA issue of
+// eight warps a block, which the stream overlaps in part.
 //
 // Numerics are exactly the reference's int8_ops: int32 accumulation,
 // round-half-away-from-zero shifts (a negative shift is a left shift, done
@@ -72,9 +103,22 @@
 // Stages a chain may have (ops.MAX_STAGES): the records and pointers below
 // are kernel parameters, and 24 stages keep them within 4 KB.
 #define MAX_STAGES 24
-#define HDR 34
+#define HDR 37
 #define STG 34
 #define THREADS 256
+#define WARPS (THREADS / 32)
+
+// The weight ring (ops.RING_*): RING_SLOTS slots of ring_ks bytes of K
+// (the header's: 128, or 64 where the windows leave less room) of up to
+// RING_ROWS weight rows, rows ring_ks + 16 bytes apart (an odd number of
+// 16-byte chunks, so ldmatrix reads no bank twice), filled RING_AHEAD slots
+// ahead of the consumers; a full and an empty mbarrier per slot follow the
+// slots.
+#define RING_KS_MAX 128
+#define RING_SLOTS 4
+#define RING_AHEAD 2
+#define RING_ROWS 128
+#define RING_NT 8        // n8 tiles of a warp's 32 x 64 tile
 
 // One stage record; field order matches ops.chain_plan.
 struct Stage {
@@ -106,8 +150,11 @@ struct Header {
   int w_off;    // shared offset of the even convs' weight panels
   int w1_off;   // shared offset of the odd convs' weight panels
   int koff;     // shared offset of the K-group offset table
-  int global_b; // bit i: conv stage i reads its weights from device memory
+  int ring_b;   // bit i: conv stage i streams its weights through the ring
   int in_or, in_oc;  // origin of a cut input window (-1: the tile's own)
+  int ni;       // images a block takes (the last group may hold fewer)
+  int ring_off; // shared offset of the ring's slots, then its mbarriers
+  int ring_ks;  // K bytes of a ring slot
 };
 static_assert(sizeof(Header) == HDR * 4, "header size");
 
@@ -172,6 +219,13 @@ __device__ __forceinline__ void hldsm_x2(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
 }
+// a 4-byte load from a window, which no thread writes while it is read:
+// not volatile, so the compiler may schedule it ahead of the MMAs
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
                                        uint32_t b1) {
   asm volatile(
@@ -179,6 +233,42 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+// an arrival on the mbarrier bar once this thread's cp.async copies so far
+// have landed (counted against the arrivals the barrier was set up with)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// The warp waits for barrier bar's phase of the given parity to complete:
+// lane 0 polls, the others follow it past __syncwarp.
+__device__ __forceinline__ void warp_wait(uint32_t bar, uint32_t parity) {
+  if ((threadIdx.x & 31) == 0) mbar_wait(bar, parity);
+  __syncwarp();
+}
+
+__host__ __device__ __forceinline__ int align16(int n) {
+  return (n + 15) & ~15;
 }
 
 // Where one stage's windows sit for this block: its input window's extent
@@ -202,9 +292,16 @@ __device__ __forceinline__ const int8_t* tap0(const Stage& s, const Place& pl,
   return src + (rr * pl.src_cols + cc) * pl.ps_in;
 }
 
-// Writes one stage output value: to the output tensor for the last stage
-// (inside (OH, OW) only), else to the next window, masked to the next
-// stage's pad identity outside this stage's true extent.
+// The block's images and where their windows sit: image g's input window
+// of a stage at src + g * src_img, its output window at dst + g * dst_img.
+struct Images {
+  int n0, count;
+  int src_img, dst_img;
+};
+
+// Writes one stage output value of image n: to the output tensor for the
+// last stage (inside (OH, OW) only), else to the image's next window,
+// masked to the next stage's pad identity outside this stage's true extent.
 __device__ __forceinline__ void put(const ChainParams& p, const Stage& s,
                                     const Place& pl, int8_t* dst, int idx,
                                     int n, int j, int jw, int r, int c,
@@ -225,23 +322,76 @@ __device__ __forceinline__ void put(const ChainParams& p, const Stage& s,
   }
 }
 
-// Output channels a warp item of a conv stage covers, in n8 tiles.
+// Where conv output pixel m (over the block's images) goes: its image's
+// output window (dst for the last stage), its offset there, image, row and
+// column.
+struct Out {
+  int8_t* dst;
+  int idx, n, r, c;
+};
+
+__device__ __forceinline__ Out out_pixel(const Stage& s, int8_t* dst,
+                                         const Images& im, int m) {
+  int g = 0;
+  if (im.count > 1) {
+    const int rc = s.rows * s.cols;
+    g = m / rc;
+    m -= g * rc;
+  }
+  Out o;
+  o.dst = s.out_buf == 2 ? dst : dst + g * im.dst_img;
+  o.idx = m * s.ps;
+  o.n = im.n0 + g;
+  o.r = m / s.cols;
+  o.c = m - o.r * s.cols;
+  return o;
+}
+
+// The epilogue of one conv output: bias, shift, ReLU and saturation of
+// accumulator acc at pixel o and channel col.
+__device__ __forceinline__ void conv_out(const ChainParams& p, const Stage& s,
+                                         const Place& pl, const Out& o,
+                                         const int32_t* bias, int ch0, int j,
+                                         int jw, int col, int acc) {
+  int v = round_shift(add32(acc, bias[col]), s.shift);
+  if (s.relu) v = max(v, 0);
+  put(p, s, pl, o.dst, o.idx + col, o.n, j, jw, o.r, o.c, ch0 + col,
+      clamp8(v));
+}
+
+// The window address pixel m (over the block's images, clamped to the
+// last) reads at tap (0, 0).
+__device__ __forceinline__ const int8_t* pixel(const Stage& s,
+                                               const Place& pl,
+                                               const int8_t* src,
+                                               const Images& im, int m) {
+  const int rc = s.rows * s.cols;
+  m = min(m, im.count * rc - 1);
+  if (im.count > 1) {
+    const int g = m / rc;
+    m -= g * rc;
+    src += g * im.src_img;
+  }
+  const int r = m / s.cols;
+  return tap0(s, pl, src, r, m - r * s.cols);
+}
+
+// Output channels a warp item of a staged conv stage covers, in n8 tiles.
 __host__ __device__ __forceinline__ int conv_nt(int cout) {
   return cout >= 32 ? 4 : (cout > 8 ? 2 : 1);
 }
 
-// A conv stage as an implicit GEMM on the int8 tensor cores; wsm holds the
-// block's rows of the packed weights (rows of kp + 16 bytes), or with GB
-// the B fragments come from the packed weights in device memory (a panel
-// too large for shared memory); koff holds each K group's byte offset in
-// the source window.
-template <int NT, bool GB>
+// A conv stage whose panel is staged: wsm holds the block's rows of the
+// packed weights (rows of kp + 16 bytes); koff holds each K group's byte
+// offset in the source window.
+template <int NT>
 __device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
                                const Place& pl, const int8_t* src,
-                               int8_t* dst, const int8_t* wsm,
-                               const int* koff, int k, int j, int jw, int n) {
+                               int8_t* dst, const Images& im,
+                               const int8_t* wsm, const int* koff, int k,
+                               int j, int jw) {
   const int ch0 = s.sliced ? k * p.h.toc : 0;
-  const int M = s.rows * s.cols;
+  const int M = im.count * s.rows * s.cols;
   const int mt = (M + 15) / 16;
   const int items = mt * ((s.cout + 8 * NT - 1) / (8 * NT));
   const int kpr = s.kp + 16, ksteps = s.kp / 32;
@@ -249,24 +399,19 @@ __device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
   const int g = lane >> 2, t = lane & 3;
   const uint32_t wbase = hsmem(wsm);
   const int32_t* bias = p.b[i] + ch0;
-  for (int item = warp; item < items; item += THREADS / 32) {
+  for (int item = warp; item < items; item += WARPS) {
     const int m0 = (item % mt) * 16, n0 = (item / mt) * 8 * NT;
     const int8_t* px[2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int m = min(m0 + g + 8 * hh, M - 1);
-      const int r = m / s.cols, c = m - r * s.cols;
-      px[hh] = tap0(s, pl, src, r, c);
-    }
+    for (int hh = 0; hh < 2; ++hh)
+      px[hh] = pixel(s, pl, src, im, m0 + g + 8 * hh);
     int acc[NT][4];
 #pragma unroll
     for (int a = 0; a < NT; ++a)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[a][e] = 0;
-    uint32_t baddr = 0;
-    const int8_t* wg = p.w[i] + (long long)(ch0 + n0 + g) * s.kp + 4 * t;
-    if constexpr (GB) {
-    } else if constexpr (NT >= 2)
+    uint32_t baddr;
+    if constexpr (NT >= 2)
       baddr = wbase + (n0 + (lane & 7) + ((lane >> 4) << 3)) * kpr
               + ((lane >> 3) & 1) * 16;
     else
@@ -279,14 +424,7 @@ __device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
       a[1] = *reinterpret_cast<const uint32_t*>(px[1] + o0);
       a[2] = *reinterpret_cast<const uint32_t*>(px[0] + o1);
       a[3] = *reinterpret_cast<const uint32_t*>(px[1] + o1);
-      if constexpr (GB) {
-#pragma unroll
-        for (int a2 = 0; a2 < NT; ++a2) {
-          const int8_t* wr = wg + (long long)8 * a2 * s.kp + 32 * ks;
-          mma_s8(acc[a2], a, __ldg(reinterpret_cast<const uint32_t*>(wr)),
-                 __ldg(reinterpret_cast<const uint32_t*>(wr + 16)));
-        }
-      } else if constexpr (NT >= 2) {
+      if constexpr (NT >= 2) {
 #pragma unroll
         for (int b2 = 0; b2 < NT / 2; ++b2) {
           uint32_t bf[4];
@@ -301,36 +439,219 @@ __device__ void conv_stage_mma(const ChainParams& p, int i, const Stage& s,
       }
     }
 #pragma unroll
-    for (int a = 0; a < NT; ++a)
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + g + 8 * hh;
+      if (m >= M) continue;
+      const Out o = out_pixel(s, dst, im, m);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + g + 8 * (e >> 1);
-        const int col = n0 + 8 * a + 2 * t + (e & 1);
-        if (m >= M || col >= s.cout) continue;
-        const int r = m / s.cols, c = m - r * s.cols;
-        int v = round_shift(add32(acc[a][e], bias[col]), s.shift);
-        if (s.relu) v = max(v, 0);
-        put(p, s, pl, dst, m * s.ps + col, n, j, jw, r, c, ch0 + col,
-            clamp8(v));
+      for (int a = 0; a < NT; ++a)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + 8 * a + 2 * t + e;
+          if (col < s.cout)
+            conv_out(p, s, pl, o, bias, ch0, j, jw, col, acc[a][2 * hh + e]);
+        }
+    }
+  }
+}
+
+// The ring: the shared addresses of slot 0 and of the mbarriers (full[s],
+// then empty[s]), and the ring steps the block has taken so far (the same
+// in every thread), from which each step's slot and phase follow.
+struct Ring {
+  uint32_t slots, bars;
+  int ks, rs, slot_bytes;   // K bytes a slot, row stride, slot stride
+  unsigned q;
+};
+
+// How a ring stage runs at this block's images: passes of a BM x BN tile
+// (MP along the pixels inside NP along the channels), each over the S
+// K slices of the stage; T = MP * NP * S ring steps in all.  The tile is
+// 128 x 128, or 256 x 64 for 64 channels or fewer: WM warps along the
+// pixels, each computing 32 pixels x 64 channels.  A block takes the K
+// slices from slice rot on (rot = the block's index mod S), so that the
+// blocks on the card do not all ask the L2 for the same weight rows at
+// once (integer sums are exact in any order).
+struct RingPlan {
+  int bn, wm, mp, np, s, t, rot;
+};
+
+__device__ __forceinline__ RingPlan ring_plan(const Stage& s, int count,
+                                              int ks) {
+  RingPlan rp;
+  rp.bn = s.cout > 8 * RING_NT ? RING_ROWS : 8 * RING_NT;
+  rp.wm = WARPS / (rp.bn / (8 * RING_NT));
+  const int M = count * s.rows * s.cols;
+  rp.mp = (M + 32 * rp.wm - 1) / (32 * rp.wm);
+  rp.np = (s.cout + rp.bn - 1) / rp.bn;
+  rp.s = (s.kp + ks - 1) / ks;
+  rp.t = rp.mp * rp.np * rp.s;
+  rp.rot = blockIdx.x % rp.s;
+  return rp;
+}
+
+// Every thread issues its share of ring step q, step u of conv stage i
+// (K slice u % S of the weight rows of pass u / S), as 16-byte cp.async
+// copies, and arrives on the slot's full barrier once they have landed;
+// first the warp waits until every warp has released the step that used
+// the slot before (RING_SLOTS steps earlier).
+__device__ __forceinline__ void ring_issue(const ChainParams& p, int i,
+                                           const Stage& s, const RingPlan& rp,
+                                           const Ring& rg, unsigned q, int u,
+                                           int ch0) {
+  const int slot = q % RING_SLOTS;
+  if (q >= RING_SLOTS)
+    warp_wait(rg.bars + 8 * (RING_SLOTS + slot), (q / RING_SLOTS - 1) & 1);
+  const int pass = u / rp.s;
+  int sl = u - pass * rp.s + rp.rot;
+  sl -= sl >= rp.s ? rp.s : 0;
+  const int row0 = (pass / rp.mp) * rp.bn;
+  const int rows = min(rp.bn, s.cout - row0);
+  const int cpr = min(rg.ks, s.kp - sl * rg.ks) / 16;   // chunks a row
+  const int8_t* w = p.w[i] + (long long)(ch0 + row0) * s.kp + sl * rg.ks;
+  const uint32_t dst = rg.slots + slot * rg.slot_bytes;
+  for (int e = threadIdx.x; e < rows * cpr; e += THREADS) {
+    const int r = e / cpr, c = e - r * cpr;
+    hcp16(dst + r * rg.rs + 16 * c, w + (long long)r * s.kp + 16 * c, true);
+  }
+  cp_async_arrive(rg.bars + 8 * slot);
+}
+
+// One K step of 32 of a ring stage's warp tile: A words of its 32 pixels
+// (K groups o0 and o1 of the window table) and B fragments of its
+// 8 * RING_NT channels from the slot (ldmatrix at sb).
+struct Frag {
+  uint32_t a[2][4];
+  uint32_t b[RING_NT / 2][4];
+};
+
+__device__ __forceinline__ void ring_frag(Frag& f, const uint32_t (&pa)[2][2],
+                                          int o0, int o1, uint32_t sb,
+                                          int rs) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    f.a[mt][0] = lds32(pa[mt][0] + o0);
+    f.a[mt][1] = lds32(pa[mt][1] + o0);
+    f.a[mt][2] = lds32(pa[mt][0] + o1);
+    f.a[mt][3] = lds32(pa[mt][1] + o1);
+  }
+#pragma unroll
+  for (int b2 = 0; b2 < RING_NT / 2; ++b2)
+    hldsm_x4(f.b[b2], sb + b2 * 16 * rs);
+}
+
+// A conv stage whose panel streams through the ring (its first RING_AHEAD
+// steps already issued).  Warp (wm, wn) of a pass computes pixels
+// [mb * BM + 32 wm, + 32) and channels [nb * BN + 64 wn, + 64); a warp
+// whose pixels or channels lie past the stage's only fills and releases.
+// Inside a step the next K step's fragments load while this one's MMAs
+// issue.
+__device__ void conv_stage_ring(const ChainParams& p, int i, const Stage& s,
+                                const Place& pl, const int8_t* src,
+                                int8_t* dst, const Images& im,
+                                const int* koff, Ring& rg, int k, int j,
+                                int jw) {
+  const int ch0 = s.sliced ? k * p.h.toc : 0;
+  const RingPlan rp = ring_plan(s, im.count, rg.ks);
+  const int M = im.count * s.rows * s.cols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % rp.wm, wn = warp / rp.wm;
+  const int32_t* bias = p.b[i] + ch0;
+  const uint32_t brow = (wn * 8 * RING_NT + (lane & 7) + ((lane >> 4) << 3))
+                        * rg.rs + ((lane >> 3) & 1) * 16;
+  const unsigned q0 = rg.q;
+  int u = 0;
+  for (int pass = 0; pass < rp.mp * rp.np; ++pass) {
+    const int nb = pass / rp.mp, mb = pass - nb * rp.mp;
+    const int m_w = mb * 32 * rp.wm + 32 * wm;
+    const int n_w = nb * rp.bn + 8 * RING_NT * wn;
+    const bool active = m_w < M && n_w < s.cout;
+    uint32_t pa[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        pa[mt][hh] = hsmem(pixel(s, pl, src, im, m_w + 16 * mt + g + 8 * hh));
+    int acc[2][RING_NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int a = 0; a < RING_NT; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][a][e] = 0;
+    for (int s0 = 0; s0 < rp.s; ++s0, ++u) {
+      const int sl = s0 + rp.rot - (s0 + rp.rot >= rp.s ? rp.s : 0);
+      const unsigned q = q0 + u;
+      if (u + RING_AHEAD < rp.t)
+        ring_issue(p, i, s, rp, rg, q + RING_AHEAD, u + RING_AHEAD, ch0);
+      const int slot = q % RING_SLOTS;
+      warp_wait(rg.bars + 8 * slot, (q / RING_SLOTS) & 1);
+      if (active) {
+        const int kb = min(rg.ks, s.kp - sl * rg.ks) / 32;
+        const uint32_t sb = rg.slots + slot * rg.slot_bytes + brow;
+        const int* ko = koff + sl * (rg.ks / 4) + t;   // K groups
+        Frag f[2];
+        ring_frag(f[0], pa, ko[0], ko[4], sb, rg.rs);
+#pragma unroll
+        for (int kk = 0; kk < RING_KS_MAX / 32; ++kk) {
+          if (kk >= kb) break;
+          if (kk + 1 < kb)
+            ring_frag(f[(kk + 1) & 1], pa, ko[8 * (kk + 1)],
+                      ko[8 * (kk + 1) + 4], sb + 32 * (kk + 1), rg.rs);
+          const Frag& c = f[kk & 1];
+#pragma unroll
+          for (int b2 = 0; b2 < RING_NT / 2; ++b2)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_s8(acc[mt][2 * b2], c.a[mt], c.b[b2][0], c.b[b2][1]);
+              mma_s8(acc[mt][2 * b2 + 1], c.a[mt], c.b[b2][2], c.b[b2][3]);
+            }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(rg.bars + 8 * (RING_SLOTS + slot));
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m_w + 16 * mt + g + 8 * hh;
+        if (m >= M) continue;
+        const Out o = out_pixel(s, dst, im, m);
+#pragma unroll
+        for (int a = 0; a < RING_NT; ++a)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n_w + 8 * a + 2 * t + e;
+            if (col < s.cout)
+              conv_out(p, s, pl, o, bias, ch0, j, jw, col,
+                       acc[mt][a][2 * hh + e]);
+          }
       }
   }
+  rg.q = q0 + rp.t;
 }
 
 // A pool or eltwise stage, one output value per thread.
 __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
                              const Place& pl, const int8_t* src, int8_t* dst,
-                             int k, int j, int jw, int n) {
+                             const Images& im, int k, int j, int jw) {
   const int src_cols = pl.src_cols, ps_in = pl.ps_in;
   const int ch0 = s.sliced ? k * p.h.toc : 0;
-  const int total = s.rows * s.cols * s.cout;
-  for (int idx = threadIdx.x; idx < total; idx += THREADS) {
+  const int per = s.rows * s.cols * s.cout;
+  for (int g = 0; g < im.count; ++g)
+  for (int idx = threadIdx.x; idx < per; idx += THREADS) {
     const int o = idx % s.cout;
     const int rc = idx / s.cout;
     const int c = rc % s.cols;
     const int r = rc / s.cols;
+    const int8_t* sg = src + g * im.src_img;
+    const int n = im.n0 + g;
     int v;
     if (s.type == 1) {  // pool: channelwise, cin == cout
-      const int8_t* sp = tap0(s, pl, src, r, c) + o;
+      const int8_t* sp = tap0(s, pl, sg, r, c) + o;
       if (s.pkind == 0) {
         int best = -128;
         for (int ki = 0; ki < s.kh; ++ki)
@@ -345,7 +666,7 @@ __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
         v = clamp8(rounded_div(sum, s.cnt));
       }
     } else {  // elt: a 1x1 window at stride 1
-      const int a = tap0(s, pl, src, r, c)[o];
+      const int a = tap0(s, pl, sg, r, c)[o];
       const int sr = pl.out_r + r - s.q0;
       const int sc = pl.out_c + c - s.q1;
       int b = 0;
@@ -356,7 +677,8 @@ __device__ void stage_scalar(const ChainParams& p, int i, const Stage& s,
       if (s.relu) v = max(v, 0);
       v = clamp8(v);
     }
-    put(p, s, pl, dst, rc * s.ps + o, n, j, jw, r, c, ch0 + o, v);
+    put(p, s, pl, dst + (s.out_buf == 2 ? 0 : g * im.dst_img), rc * s.ps + o,
+        n, j, jw, r, c, ch0 + o, v);
   }
 }
 
@@ -376,7 +698,10 @@ __device__ void stage_panel(const ChainParams& p, int i, int k,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// RING: the launch has ring stages (ring_b set).  Without, the ring's code
+// and registers stay out of the kernel, so that four blocks fit an SM.
+template <bool RING>
+__global__ void __launch_bounds__(THREADS, RING ? 2 : 4)
 chain_kernel(const __grid_constant__ ChainParams p) {
   extern __shared__ __align__(16) int8_t smem[];
   const Header& h = p.h;
@@ -387,42 +712,60 @@ chain_kernel(const __grid_constant__ ChainParams p) {
   int8_t* const w_even = smem + h.w_off;
   int8_t* const w_odd = smem + h.w1_off;
   int* koff = reinterpret_cast<int*>(smem + h.koff);
+  Ring rg;
+  rg.ks = h.ring_ks;
+  rg.rs = rg.ks + 16;
+  rg.slot_bytes = RING_ROWS * rg.rs;
+  rg.slots = hsmem(smem + h.ring_off);
+  rg.bars = rg.slots + RING_SLOTS * rg.slot_bytes;
+  rg.q = 0;
   int bid = blockIdx.x;
   const int k = bid % h.n_k;
   bid /= h.n_k;
   const int jw = bid % h.n_w;
   bid /= h.n_w;
   const int j = bid % h.n_h;
-  const int n = bid / h.n_h;
+  Images im;
+  im.n0 = (bid / h.n_h) * h.ni;
+  im.count = min(h.ni, h.N - im.n0);
 
+  if (RING && threadIdx.x == 0) {
+    for (int s = 0; s < RING_SLOTS; ++s) {
+      mbar_init(rg.bars + 8 * s, THREADS);    // full: each thread's copies
+      mbar_init(rg.bars + 8 * (RING_SLOTS + s), WARPS);   // empty: each warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   // the first conv's weights load while the window does
   int next_conv = 0;
   while (next_conv < h.n_stages && p.st[next_conv].type != 0) ++next_conv;
-  if (next_conv < h.n_stages && !((h.global_b >> next_conv) & 1))
+  if (next_conv < h.n_stages && !((h.ring_b >> next_conv) & 1))
     stage_panel(p, next_conv, k, w_even);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   // padded position of the input window's (0, 0)
   const int in_r = h.in_or >= 0 ? h.in_or : j * h.f_in;
   const int in_c = h.in_oc >= 0 ? h.in_oc : jw * h.fw_in;
-  {  // halo'd input window -> buffer A, pixel stride in_ps
+  const int in_img = align16(h.in_rows * h.in_cols * h.in_ps);
+  {  // halo'd input windows of the block's images -> buffer A
     const int ch0 = h.in_sliced ? k * h.toc : 0;
-    const int8_t* xn = p.x + (long long)n * h.x_sn + ch0;
+    const int8_t* x0 = p.x + (long long)im.n0 * h.x_sn + ch0;
     const int px = h.in_rows * h.in_cols;
-    const uintptr_t al = reinterpret_cast<uintptr_t>(xn) | h.x_sh | h.x_sw
-                         | h.in_c | h.in_ps;
+    const uintptr_t al = reinterpret_cast<uintptr_t>(x0) | h.x_sn | h.x_sh
+                         | h.x_sw | h.in_c | h.in_ps;
     // words of 16 or 4 bytes where channels, strides and pointer allow
     const int wb = (al & 15) == 0 ? 16 : ((al & 3) == 0 ? 4 : 1);
     const int per = h.in_c / wb;
+    for (int g = 0; g < im.count; ++g)
     for (int idx = threadIdx.x; idx < px * per; idx += THREADS) {
       const int pix = idx / per, cw = (idx - pix * per) * wb;
       const int c = pix % h.in_cols, r = pix / h.in_cols;
       const int xr = in_r + r - h.q_in0;
       const int xc = in_c + c - h.q_in1;
       const bool in = xr >= 0 && xr < h.H && xc >= 0 && xc < h.W;
-      const int8_t* sp = xn + (long long)xr * h.x_sh + (long long)xc * h.x_sw
-                         + cw;
-      int8_t* dp = buf_a + pix * h.in_ps + cw;
+      const int8_t* sp = x0 + (long long)g * h.x_sn + (long long)xr * h.x_sh
+                         + (long long)xc * h.x_sw + cw;
+      int8_t* dp = buf_a + g * in_img + pix * h.in_ps + cw;
       if (wb == 16) {
         const uint32_t f = (uint8_t)h.fill0 * 0x01010101u;
         *reinterpret_cast<uint4*>(dp) =
@@ -436,6 +779,7 @@ chain_kernel(const __grid_constant__ ChainParams p) {
       }
     }
   }
+  __syncthreads();   // the ring's barriers initialised
 
   int src_buf = 0;
   Place pl;
@@ -444,9 +788,11 @@ chain_kernel(const __grid_constant__ ChainParams p) {
   pl.ps_in = h.in_ps;
   pl.out_r = in_r;
   pl.out_c = in_c;
+  im.src_img = in_img;
   int conv_i = 0;
   for (int i = 0; i < h.n_stages; ++i) {
     const Stage& s = p.st[i];
+    const bool ring = (h.ring_b >> i) & 1;
     {  // this stage's output window: cut, or the tile's own (the last's)
       const int out_r = s.or0 >= 0 ? s.or0 : j * s.fout;
       const int out_c = s.oc0 >= 0 ? s.oc0 : jw * s.foutw;
@@ -455,6 +801,7 @@ chain_kernel(const __grid_constant__ ChainParams p) {
       pl.out_r = out_r;
       pl.out_c = out_c;
     }
+    im.dst_img = align16(s.rows * s.cols * s.ps);
     const int8_t* src = src_buf ? buf_b : buf_a;
     int8_t* dst = s.out_buf == 2 ? nullptr : (s.out_buf ? buf_b : buf_a);
     if (s.type == 0) {
@@ -462,12 +809,18 @@ chain_kernel(const __grid_constant__ ChainParams p) {
       next_conv = i + 1;
       while (next_conv < h.n_stages && p.st[next_conv].type != 0) ++next_conv;
       if (next_conv < h.n_stages) {
-        if (!((h.global_b >> next_conv) & 1))
+        if (!((h.ring_b >> next_conv) & 1))
           stage_panel(p, next_conv, k, (conv_i & 1) ? w_even : w_odd);
         asm volatile("cp.async.commit_group;\n" ::: "memory");
         asm volatile("cp.async.wait_group 1;\n" ::: "memory");
       } else {
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      if (RING && ring) {   // the ring's first steps
+        const RingPlan rp = ring_plan(s, im.count, rg.ks);
+        const int ch0 = s.sliced ? k * h.toc : 0;
+        for (int u = 0; u < min(RING_AHEAD, rp.t); ++u)
+          ring_issue(p, i, s, rp, rg, rg.q + u, u, ch0);
       }
       // K-group offsets in the window: (tap row, tap column, channel)
       const int cinp = (s.cin + 3) & ~3;
@@ -484,27 +837,29 @@ chain_kernel(const __grid_constant__ ChainParams p) {
     }
     __syncthreads();   // window, panel and table ready
     if (s.type == 0) {
-      const int8_t* wsm = (conv_i & 1) ? w_odd : w_even;
-      const int sel = conv_nt(s.cout) + 8 * ((h.global_b >> i) & 1);
-      switch (sel) {
-#define CONV_CASE(NT_, GB_)                                                \
-  case NT_ + 8 * (int)GB_:                                                 \
-    conv_stage_mma<NT_, GB_>(p, i, s, pl, src, dst, wsm, koff, k, j, jw,  \
-                             n);                                           \
-    break;
-        CONV_CASE(4, false) CONV_CASE(2, false) CONV_CASE(1, false)
-        CONV_CASE(4, true) CONV_CASE(2, true) CONV_CASE(1, true)
-#undef CONV_CASE
+      if (RING && ring) {
+        conv_stage_ring(p, i, s, pl, src, dst, im, koff, rg, k, j, jw);
+      } else {
+        const int8_t* wsm = (conv_i & 1) ? w_odd : w_even;
+        switch (conv_nt(s.cout)) {
+          case 4: conv_stage_mma<4>(p, i, s, pl, src, dst, im, wsm, koff, k,
+                                    j, jw); break;
+          case 2: conv_stage_mma<2>(p, i, s, pl, src, dst, im, wsm, koff, k,
+                                    j, jw); break;
+          default: conv_stage_mma<1>(p, i, s, pl, src, dst, im, wsm, koff,
+                                     k, j, jw);
+        }
       }
       ++conv_i;
     } else {
-      stage_scalar(p, i, s, pl, src, dst, k, j, jw, n);
+      stage_scalar(p, i, s, pl, src, dst, im, k, j, jw);
     }
     __syncthreads();
     src_buf = s.out_buf;
     pl.src_rows = s.rows;
     pl.src_cols = s.cols;
     pl.ps_in = s.ps;
+    im.src_img = im.dst_img;
   }
 }
 
@@ -742,12 +1097,14 @@ extern "C" int repro_fused_chain(const int32_t* desc, int n_desc,
     p.side[i] = reinterpret_cast<const int8_t*>(ptrs[4 + 3 * i]);
   }
   if (n_blocks <= 0) return 0;
+  void (*kernel)(ChainParams) =
+      p.h.ring_b ? chain_kernel<true> : chain_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  chain_kernel<<<n_blocks, THREADS, smem, (cudaStream_t)stream>>>(p);
+  kernel<<<n_blocks, THREADS, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,10 @@ written in CUDA C++ for ``sm_90a`` in ``csrc/conv_fused.cu``:
 
 Each wrapper takes its plain PyTorch version (``fused_chain_plain``,
 ``fused_horizontal_plain``) only for a tensor on the CPU; on a CUDA tensor it
-launches its kernel or raises.  ``LAUNCHES`` counts kernel launches and
-``PLAIN_CALLS`` counts the wrappers' CPU branch.
+launches its kernel or raises.  ``LAUNCHES`` counts kernel launches (and,
+under "fused_chain_ring_stages", the conv stages the chain launches ran
+through the weight ring) and ``PLAIN_CALLS`` counts the wrappers' CPU
+branch.
 
 ``run_launch`` executes one ``FusedLaunch`` against an activation env; the
 executor builds each launch's device weights once (``prepare_launch``).  A
@@ -34,7 +36,8 @@ from repro_torch.kernels import build, refuse_autograd
 
 I8_MIN = -128
 
-LAUNCHES = {"fused_chain": 0, "fused_horizontal": 0}
+LAUNCHES = {"fused_chain": 0, "fused_horizontal": 0,
+            "fused_chain_ring_stages": 0}
 PLAIN_CALLS = {"fused_chain": 0, "fused_horizontal": 0}
 TILE_RECORDS = {"applied": 0}
 
@@ -190,9 +193,39 @@ THREADS = 256
 # every CUDA release passes (the longest chain the five CNNs lower to under
 # ZU2 or ZU9 has 10 stages: YOLO-lite under ZU9).
 MAX_STAGES = 24
-HDR, STG = 34, 34           # int32 fields of the header / of each stage
+HDR, STG = 37, 34           # int32 fields of the header / of each stage
+# bytes of the kernel's parameters (ChainParams): the header, MAX_STAGES
+# stage records, then x, out and three pointers a stage
+CHAIN_PARAM_BYTES = 4 * (HDR + STG * MAX_STAGES) + 8 * (2 + 3 * MAX_STAGES)
 _TYPE = {"conv": 0, "pool": 1, "elt": 2}
 _PKIND = {"max": 0, "avg": 1, "gap": 1}   # gap is an avg over the window
+# The weight ring of the conv stages whose panels do not fit (the kernel's
+# RING_*): RING_SLOTS slots of ks bytes of K (RING_KS, the first that fits
+# beside the windows) of up to RING_ROWS weight rows, rows ks + 16 bytes
+# apart, then a full and an empty mbarrier a slot.  A ring stage runs in
+# passes of a 128 x 128 tile (pixels x channels), or 256 x 64 for 64
+# channels or fewer: eight warps of 32 x 64.
+RING_KS, RING_SLOTS, RING_ROWS = (128, 64), 4, 128
+RING_WARP_N = 64            # channels of a warp's 32 x 64 tile
+# Cost model (``_plan_cost``), in the units of its staged path (about
+# 25 ns each on an H100): a ring pass's K step of 32 (RING_K_STEP, for the
+# block's eight warps) plus RING_ROW_STEP for each warp row of 32 pixels
+# that has pixels of the pass (a pass of few pixels leaves rows idle, and
+# the MMAs it issues grow with its pixels), a pass's own cost (its first
+# slots and its epilogue), and the weight bytes the card's L2 streams to
+# the blocks in a unit.  Fitted to the tilings of the chain launches of
+# VGG16-224 under ZU2 at batch 64 and of the VGG16-224, ResNet50-224,
+# GoogLeNet-224 plans (and YOLO-lite-256's and ResNet152-224's ring
+# launches) at batch 1: 198 launches, 31,125 tilings timed on the card.
+RING_K_STEP = 72
+RING_ROW_STEP = 20
+RING_PASS = 300
+FETCH_BYTES_PER_UNIT = 100_000
+
+
+def ring_bytes(ks: int) -> int:
+    """Shared bytes of the ring at slots of ``ks`` bytes of K."""
+    return RING_SLOTS * RING_ROWS * (ks + 16) + 16 * RING_SLOTS
 
 
 def _align(n: int, a: int = 16) -> int:
@@ -237,6 +270,15 @@ def _panel(cout: int, kp: int) -> int:
     return _align(cout, 8 * nt) * (kp + 16)
 
 
+def ring_passes(cout: int, m: int) -> tuple[int, int, int, int]:
+    """(BN, BM, passes along the pixels, passes along the channels) of a
+    ring stage of ``cout`` channels over ``m`` output pixels (the kernel's
+    ``ring_plan``)."""
+    bn = RING_ROWS if cout > RING_WARP_N else RING_WARP_N
+    bm = 32 * (THREADS // 32) * RING_WARP_N // bn
+    return bn, bm, -(-m // bm), -(-cout // bn)
+
+
 def _windows(chain, geom) -> list:
     """(rows, cols, row origin, col origin) of each window a block holds,
     window k being stage k's input (k = 0 the chain's input, else stage
@@ -261,15 +303,19 @@ def _windows(chain, geom) -> list:
     return out
 
 
-def _layout(chain, geom, ch, last_conv, c_in, toc) -> dict:
-    """Shared memory of one block at one tiling: the two window buffers
-    (window k in A when k is even, B when odd; k = 0 is the input, pixel
-    strides ``_ps``, extents ``_windows``), the weight panel buffers (even
-    convs' in the first, odd convs' in the second, so the next conv's panel
-    loads while a stage computes) and the K-group offset table.  A panel
-    that does not fit beside the rest (largest first) is read from device
-    memory instead: bit i of ``global_b`` marks stage i.  ``rows`` and
-    ``cols`` are each stage's output window as the block computes it."""
+def _layout(chain, geom, ch, last_conv, c_in, toc, ni: int = 1) -> dict:
+    """Shared memory of one block at one tiling of ``ni`` images: the two
+    window buffers (window k in A when k is even, B when odd; k = 0 is the
+    input, pixel strides ``_ps``, extents ``_windows``; each image's window
+    on a 16-byte boundary after the one before), the weight panel buffers
+    (even convs' in the first, odd convs' in the second, so the next conv's
+    panel loads while a stage computes), the K-group offset table and, where
+    some panel streams, the ring.  A panel that does not fit beside the rest
+    (largest first) streams through the ring instead: bit i of ``ring_b``
+    marks stage i, and the ring's slots take ``ring_ks`` bytes of K (the
+    widest of ``RING_KS`` that fits).  ``rows`` and ``cols`` are each
+    stage's output window as the block computes it; ``win`` each window's
+    bytes for one image."""
     m = len(chain)
     cout = [toc if i >= last_conv else ch[i] for i in range(m)]
     in_c = toc if last_conv < 0 else c_in
@@ -277,10 +323,10 @@ def _layout(chain, geom, ch, last_conv, c_in, toc) -> dict:
     wins = _windows(chain, geom)
     rows = [w[0] for w in wins[1:]] + [geom["rows"][-1]]
     cols = [w[1] for w in wins[1:]] + [geom["cols"][-1]]
-    win = [wins[0][0] * wins[0][1] * _ps(in_c)] + [
-        rows[i] * cols[i] * ps[i] for i in range(m - 1)]
-    size_a = _align(max(win[0::2]))
-    size_b = _align(max(win[1::2])) if m > 1 else 0
+    win = [_align(wins[0][0] * wins[0][1] * _ps(in_c))] + [
+        _align(rows[i] * cols[i] * ps[i]) for i in range(m - 1)]
+    size_a = ni * max(win[0::2])
+    size_b = ni * max(win[1::2]) if m > 1 else 0
     convs, kps, cin = [], {}, in_c
     for i, st in enumerate(chain):
         if st[0] == "conv":
@@ -293,55 +339,115 @@ def _layout(chain, geom, ch, last_conv, c_in, toc) -> dict:
     def buffers():
         return [max([panels[i] for i in convs[par::2] if i in staged],
                     default=0) for par in (0, 1)]
+
+    def ring(ks):
+        return ring_bytes(ks) if len(staged) < len(convs) else 0
+
+    def total(ks):
+        return size_a + size_b + sum(buffers()) + table + ring(ks)
     table = 4 * max([kp // 4 for kp in kps.values()], default=0)
-    while staged and size_a + size_b + sum(buffers()) + table > SMEM_MAX:
-        staged.remove(max(staged, key=lambda i: panels[i]))
+    for ks in RING_KS:              # wider slots where they fit
+        staged = set(convs)
+        while staged and total(ks) > SMEM_MAX:
+            staged.remove(max(staged, key=lambda i: panels[i]))
+        if total(ks) <= SMEM_MAX:
+            break
     w0, w1 = buffers()
+    koff = size_a + size_b + w0 + w1
     return {"cout": cout, "in_c": in_c, "ps": ps, "win": win,
-            "windows": wins, "rows": rows, "cols": cols,
+            "windows": wins, "rows": rows, "cols": cols, "ni": ni,
             "size_a": size_a, "size_b": size_b, "kps": kps,
             "panels": panels, "staged": staged,
-            "global_b": sum(1 << i for i in convs if i not in staged),
+            "ring_b": sum(1 << i for i in convs if i not in staged),
             "w_off": size_a + size_b, "w1_off": size_a + size_b + w0,
-            "koff": size_a + size_b + w0 + w1,
-            "smem": size_a + size_b + w0 + w1 + table}
+            "koff": koff, "ring_off": koff + table,
+            "ring_ks": ks if len(staged) < len(convs) else 0,
+            "smem": total(ks)}
 
 
-def _plan_cost(chain, geom, ch, last_conv, c_in, toc, n, oc):
-    """(smem bytes, estimated time, issued work) of one tiling.
+def _block_fetch(chain, lay, count: int) -> int:
+    """Weight bytes one block of ``count`` images fetches from device
+    memory: each staged panel's rows once (``stage_panel``), each ring
+    stage's rows once for every pass of its tile along the pixels."""
+    total = 0
+    for i, st in enumerate(chain):
+        if st[0] != "conv":
+            continue
+        cout, kp = lay["cout"][i], lay["kps"][i]
+        if i in lay["staged"]:
+            total += _align(cout, 8 * conv_nt(cout)) * kp
+        else:
+            px = count * lay["rows"][i] * lay["cols"][i]
+            total += ring_passes(cout, px)[2] * cout * kp
+    return total
+
+
+def _fetch(chain, lay, n: int, tiles: int) -> int:
+    """Weight bytes a launch of batch ``n`` fetches over its blocks:
+    ``tiles`` blocks (spatial tiles x OC tiles) for each group of ``ni``
+    images, the last group ragged."""
+    ni = lay["ni"]
+    full, rest = divmod(n, ni)
+    out = full * _block_fetch(chain, lay, ni)
+    if rest:
+        out += _block_fetch(chain, lay, rest)
+    return out * tiles
+
+
+def _plan_cost(chain, geom, ch, last_conv, c_in, toc, n, oc, ni: int = 1):
+    """(smem bytes, estimated time, issued work, fetched weight bytes) of
+    one tiling of blocks of ``ni`` images.
 
     Per block, in rough cycles: the window and staged weight bytes it
-    loads, and for each conv stage its rounds of warp items (16 pixels x
-    8 * ``conv_nt`` channels, eight warps at a time) times the K steps of 32
-    an item takes (dearer where B comes from device memory); pools and
-    eltwise adds a value per thread a round.  The estimate is a block's
-    time times the waves of blocks the SMs hold at once; issued work counts
-    the tensor-core instructions of all blocks."""
-    lay = _layout(chain, geom, ch, last_conv, c_in, toc)
+    loads; for each staged conv stage its rounds of warp items (16 pixels
+    x 8 * ``conv_nt`` channels, eight warps at a time) times the K steps of
+    32 an item takes; for each ring stage its passes (``ring_passes``)
+    times its K steps, and its K steps times the warp rows that hold
+    pixels; pools and eltwise adds a value per thread a round.
+    The blocks' work is a block's time times the waves of blocks the SMs
+    hold at once; the weight stream is the launch's fetched weight bytes
+    over the L2's rate.  The two overlap in part: the estimate is the
+    larger plus half the smaller (as ring launches measured with and
+    without their MMAs add up); a tiling without ring stages is its
+    blocks' work alone, its panels charged in each block.  Issued work
+    counts the tensor-core instructions of all blocks."""
+    lay = _layout(chain, geom, ch, last_conv, c_in, toc, ni)
     cout = lay["cout"]
-    cycles = 500 + lay["win"][0] / 64
+    cycles = 500 + ni * lay["win"][0] / 64
     issued = 0
     for i, st in enumerate(chain):
-        rows, cols = lay["rows"][i], lay["cols"][i]
+        px = ni * lay["rows"][i] * lay["cols"][i]
         if st[0] == "conv":
-            nt = conv_nt(cout[i])
-            items = -(-rows * cols // 16) * -(-cout[i] // (8 * nt))
             steps = lay["kps"][i] // 32
-            per = 6 + 2 * nt
             if i in lay["staged"]:
-                cycles += lay["panels"][i] / 32
+                nt = conv_nt(cout[i])
+                items = -(-px // 16) * -(-cout[i] // (8 * nt))
+                cycles += (lay["panels"][i] / 32 + 100
+                           + -(-items // (THREADS // 32)) * steps
+                           * (6 + 2 * nt))
+                issued += items * steps * nt
             else:
-                per += 8 * nt
-            cycles += 100 + -(-items // (THREADS // 32)) * steps * per
-            issued += items * steps * nt
+                bn, bm, mp, np_ = ring_passes(cout[i], px)
+                cycles += (100 + mp * np_ * (steps * RING_K_STEP + RING_PASS)
+                           + np_ * steps * -(-px // 32) * RING_ROW_STEP)
+                issued += mp * np_ * steps * (bm // 16) * (bn // 8)
         elif st[0] == "pool":
-            cycles += -(-rows * cols * cout[i] // THREADS) * st[3] * st[4] * 4
+            cycles += -(-px * cout[i] // THREADS) * st[3] * st[4] * 4
         else:
-            cycles += -(-rows * cols * cout[i] // THREADS) * 8
-    blocks = n * geom["n_h"] * geom["n_w"] * (oc // toc)
-    occ = max(1, min(4, SMEM_MAX // (lay["smem"] + 1024)))
-    est = cycles * -(-blocks // (N_SM * occ))
-    return lay["smem"], est, issued * blocks
+            cycles += -(-px * cout[i] // THREADS) * 8
+    tiles = geom["n_h"] * geom["n_w"] * (oc // toc)
+    blocks = -(-n // ni) * tiles
+    # blocks an SM holds: by shared memory, at most four, and two for the
+    # ring's kernel (its registers allow no more)
+    occ = max(1, min(2 if lay["ring_b"] else 4,
+                     SMEM_MAX // (lay["smem"] + 1024)))
+    fetch = _fetch(chain, lay, n, tiles)
+    work = cycles * -(-blocks // (N_SM * occ))
+    if not lay["ring_b"]:        # staged panels: charged in each block
+        return lay["smem"], work, issued * blocks, fetch
+    stream = fetch / FETCH_BYTES_PER_UNIT
+    est = max(work, stream) + min(work, stream) / 2
+    return lay["smem"], est, issued * blocks, fetch
 
 
 def _ladder(n: int) -> list[int]:
@@ -349,32 +455,65 @@ def _ladder(n: int) -> list[int]:
     return sorted(set(out + [min(n, 32)]), reverse=True)
 
 
+def _images(n: int) -> list[int]:
+    """Images a block may take at batch ``n``: powers of two below it, and
+    ``n`` itself."""
+    return sorted({t for t in (1, 2, 4, 8, 16, 32) if t < n} | {n})
+
+
+def _tocs(oc: int) -> list[int]:
+    """Output-channel tiles the chooser weighs, largest first."""
+    return sorted({t for t in (oc, oc // 2, oc // 4, oc // 8, 64, 32, 16, 8)
+                   if t >= 1 and oc % t == 0}, reverse=True)
+
+
+def chain_tile_candidates(chain, oh: int, ow: int, oc: int, c_in: int,
+                          n: int, oc_list: tuple, shape: tuple = ()):
+    """Every tiling the chooser weighs at batch ``n``: ((th, tw, toc, ni),
+    blocks, smem bytes, estimated time, issued work, fetched weight bytes)
+    for the tilings whose buffers fit in a block's shared memory; with
+    ``shape`` (th, tw, toc), only the counts of images at that shape."""
+    ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
+    ths, tws, tocs = (([shape[0]], [shape[1]], [shape[2]]) if shape else
+                      (_ladder(oh), _ladder(ow), _tocs(oc)))
+    for th in ths:
+        for tw in tws:
+            geom = chain_geometry(chain, th, oh, ow, tw)
+            for toc in tocs:
+                for ni in _images(n):
+                    smem, est, total, fetch = _plan_cost(
+                        chain, geom, ch, last_conv, c_in, toc, n, oc, ni)
+                    if smem > SMEM_MAX:
+                        break          # more images take more windows
+                    blocks = -(-n // ni) * geom["n_h"] * geom["n_w"] * (
+                        oc // toc)
+                    yield (th, tw, toc, ni), blocks, smem, est, total, fetch
+
+
 @functools.lru_cache(maxsize=None)
 def choose_chain_tile(chain, oh: int, ow: int, oc: int, c_in: int, n: int,
-                      oc_list: tuple) -> tuple[int, int, int]:
-    """(th, tw, toc) for the card: among the tilings whose buffers fit in a
-    block's shared memory and that give every SM a block (or as many blocks
-    as the output allows), the one whose estimated time (per-block work
-    times waves of blocks over the SMs) is least.  The output does not
-    depend on the choice: the padded-coordinate masking makes every tile
-    exact."""
-    ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
-    tocs = [t for t in (oc, oc // 2, oc // 4, oc // 8, 64, 32, 16, 8)
-            if t >= 1 and oc % t == 0]
-    fill = min(N_SM, n * oh * ow * (oc // min(tocs)))
+                      oc_list: tuple, shape: tuple = ()
+                      ) -> tuple[int, int, int, int]:
+    """(th, tw, toc, ni) for the card: among the tilings whose buffers fit
+    in a block's shared memory (``chain_tile_candidates``) and that give at
+    least half the SMs a block (or half as many blocks as the output
+    allows), the one whose estimated time (per-block work times waves of
+    blocks over the SMs, or the weight bytes fetched over the L2's rate) is
+    least.  (Fewer, larger blocks often win: each block of a chain
+    recomputes the stages before its last conv and fetches their weights;
+    a rule that every SM get a block kept most batch-1 ResNet and VGG16
+    chains off their fastest tilings.)  A block takes ``ni`` images; at
+    batch 1 that is one.  With ``shape`` (th, tw,
+    toc), as a tile record fixes it, only ``ni`` is chosen.  The output
+    does not depend on the choice: the padded-coordinate masking makes
+    every tile exact."""
+    fill = min(N_SM, n * oh * ow * (oc // _tocs(oc)[-1]))
     best = None
-    for th in _ladder(oh):
-        for tw in _ladder(ow):
-            geom = chain_geometry(chain, th, oh, ow, tw)
-            for toc in sorted(set(tocs), reverse=True):
-                smem, est, total = _plan_cost(chain, geom, ch, last_conv,
-                                              c_in, toc, n, oc)
-                if smem > SMEM_MAX:
-                    continue
-                blocks = n * geom["n_h"] * geom["n_w"] * (oc // toc)
-                key = (blocks < fill, est, total, -th * tw)
-                if best is None or key < best[0]:
-                    best = (key, (th, tw, toc))
+    for tile, blocks, _, est, total, _ in chain_tile_candidates(
+            chain, oh, ow, oc, c_in, n, oc_list, shape):
+        key = (2 * blocks < fill, est, total, -tile[0] * tile[1], tile[3])
+        if best is None or key < best[0]:
+            best = (key, tile)
     if best is None:
         raise ValueError(f"chain {[st[1] for st in chain]} does not fit in "
                          f"{SMEM_MAX} bytes of shared memory even at 1x1")
@@ -383,35 +522,45 @@ def choose_chain_tile(chain, oh: int, ow: int, oc: int, c_in: int, n: int,
 
 def card_tile(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
               tile) -> tuple[tuple, str | None]:
-    """The (th, tw, toc) the chain kernel runs for a forced tile — th and tw
-    clamped to the output — and why the card cannot run it (None when it
-    can): the OC grid axis cannot run ragged, and a block's buffers must
-    fit in its shared memory."""
+    """The tile the chain kernel runs for a forced (th, tw, toc) or
+    (th, tw, toc, ni) — th and tw clamped to the output, in the form it was
+    given (without ni a block takes one image) — and why the card cannot
+    run it (None when it can): the OC grid axis cannot run ragged, and a
+    block's buffers must fit in its shared memory."""
     th, tw, toc = (max(1, min(int(tile[0]), oh)),
                    max(1, min(int(tile[1]), ow)), int(tile[2]))
+    t = (th, tw, toc, *(int(v) for v in tile[3:4]))
     if toc < 1 or oc % toc:
-        return (th, tw, toc), f"toc {toc} does not divide {oc}"
-    _, smem = chain_plan(chain, oh, ow, oc, c_in, oc_list, (th, tw, toc))
+        return t, f"toc {toc} does not divide {oc}"
+    if _tile4(t)[3] < 1:
+        return t, f"ni {t[3]} is not a count of images"
+    _, smem = chain_plan(chain, oh, ow, oc, c_in, oc_list, t)
     if smem > SMEM_MAX:
-        return (th, tw, toc), (f"needs {smem} bytes of shared memory, a "
-                               f"block has {SMEM_MAX}")
-    return (th, tw, toc), None
+        return t, (f"needs {smem} bytes of shared memory, a block has "
+                   f"{SMEM_MAX}")
+    return t, None
+
+
+def _tile4(tile) -> tuple:
+    """A tile as (th, tw, toc, ni); a 3-tuple takes one image a block."""
+    return tuple(tile) if len(tile) > 3 else (*tile, 1)
 
 
 @functools.lru_cache(maxsize=None)
 def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
                tile: tuple) -> tuple[np.ndarray, int]:
     """Packed int32 descriptor (header + one record per stage) of a chain at
-    one tiling, and its shared-memory bytes.  Per-call fields (batch, input
-    and side strides) are left 0 and filled by the wrapper."""
-    th, tw, toc = tile
+    one tiling, (th, tw, toc) or (th, tw, toc, ni), and its shared-memory
+    bytes.  Per-call fields (batch, input and side strides) are left 0 and
+    filled by the wrapper."""
+    th, tw, toc, ni = _tile4(tile)
     m = len(chain)
     if m > MAX_STAGES:
         raise ValueError(f"chain of {m} stages; the kernel takes at most "
                          f"{MAX_STAGES}")
     geom = chain_geometry(chain, th, oh, ow, tw)
     ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
-    lay = _layout(chain, geom, ch, last_conv, c_in, toc)
+    lay = _layout(chain, geom, ch, last_conv, c_in, toc, ni)
     cout, in_c = lay["cout"], lay["in_c"]
     d = np.zeros(HDR + STG * m, np.int32)
     d[0] = m
@@ -424,8 +573,9 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
     d[17:23] = (th, tw, toc, geom["n_h"], geom["n_w"], oc // toc)
     d[23:26] = (oh, ow, oc)
     d[26:32] = (lay["size_a"], _ps(in_c), lay["w_off"], lay["w1_off"],
-                lay["koff"], lay["global_b"])
+                lay["koff"], lay["ring_b"])
     d[32:34] = wins[0][2:]
+    d[34:37] = (ni, lay["ring_off"], lay["ring_ks"])
     cin = in_c
     for i, st in enumerate(chain):
         s = d[HDR + STG * i:HDR + STG * (i + 1)]
@@ -453,6 +603,18 @@ def chain_plan(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
         cin = cout[i]
     d.setflags(write=False)
     return d, lay["smem"]
+
+
+@functools.lru_cache(maxsize=None)
+def chain_fetch(chain, oh: int, ow: int, oc: int, c_in: int, oc_list: tuple,
+                tile: tuple, n: int) -> int:
+    """Weight bytes a launch at ``tile`` and batch ``n`` fetches from
+    device memory (``_fetch``): what the planner charges."""
+    th, tw, toc, ni = _tile4(tile)
+    geom = chain_geometry(chain, th, oh, ow, tw)
+    ch, last_conv = _chain_channels(chain, c_in, lambda i: oc_list[i])
+    lay = _layout(chain, geom, ch, last_conv, c_in, toc, ni)
+    return _fetch(chain, lay, n, geom["n_h"] * geom["n_w"] * (oc // toc))
 
 
 def pack_chain_weights(w) -> torch.Tensor:
@@ -515,7 +677,9 @@ def _chain_call(chain, oh, ow, oc, tile, x_geom, w_shapes, b_shapes,
                 side_geoms) -> tuple[np.ndarray, int, int]:
     """(descriptor, shared-memory bytes, blocks) of one call signature:
     the operands' shapes checked, the tile chosen (or a forced one clamped),
-    and the call's batch and strides written into the descriptor."""
+    and the call's batch and strides written into the descriptor; a block
+    takes the tile's ``ni`` images, so the batch makes ceil(n / ni) groups
+    of blocks."""
     x_shape, x_strides = x_geom
     n, _, _, c_in = x_shape
     oc_list = _chain_shapes(x_shape, w_shapes, b_shapes,
@@ -536,7 +700,8 @@ def _chain_call(chain, oh, ow, oc, tile, x_geom, w_shapes, b_shapes,
         desc[rec + 26:rec + 28] = s_shape[1:3]
         desc[rec + 28:rec + 31] = s_strides[:3]
     desc.setflags(write=False)
-    return desc, smem, n * int(desc[20]) * int(desc[21]) * int(desc[22])
+    groups = -(-n // int(desc[34]))
+    return desc, smem, groups * int(desc[20]) * int(desc[21]) * int(desc[22])
 
 
 def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile,
@@ -591,6 +756,7 @@ def _launch_chain(x, weights, biases, sides, *, chain, oh, ow, oc, tile,
         raise RuntimeError(f"fused_chain launch failed: "
                            f"{build.error(lib, rc)}")
     LAUNCHES["fused_chain"] += 1
+    LAUNCHES["fused_chain_ring_stages"] += bin(int(desc[31])).count("1")
     return out
 
 
@@ -598,7 +764,8 @@ def fused_chain(x, weights, biases, sides, *, chain, oh, ow, oc,
                 tile=None, packed=None, span=None):
     """Run a lowered chain.  x (N,H,W,C) int8 unpadded; one (KH,KW,IC,OC)
     int8 weight and (OC,) int32 bias per conv stage; one int8 side per elt
-    stage.  ``tile`` (th, tw, toc) overrides the card's tile choice;
+    stage.  ``tile`` (th, tw, toc), or (th, tw, toc, ni) with ni images a
+    block (one without), overrides the card's tile choice;
     ``packed`` is ``pack_chain_weights`` of each weight, made once by the
     caller (the kernel packs them itself without it, the plain version
     ignores it).  ``span``, a context manager, encloses the kernel's launch
@@ -790,20 +957,36 @@ def launch_geometry(launch, in_shape, conv_ocs) -> tuple:
 
 
 def launch_tile(launch, in_shape, conv_ocs) -> tuple | None:
-    """The tile a chain launch runs at: its record (``launch.tile``) as the
-    card runs it, or None (the card's chooser) without one.  A record the
-    card cannot run raises: no quiet fall back to the chooser."""
+    """The (th, tw, toc, ni) a chain launch runs at: its record
+    (``launch.tile``) as the card runs it, or None (the card's chooser)
+    without one.  A record fixes (th, tw, toc); the images a block takes
+    are the chooser's at the call's batch (``choose_chain_tile`` at that
+    shape), as without a record.  A record the card cannot run raises: no
+    quiet fall back to the chooser."""
     if not launch.tile:
         return None
     oh, ow, oc, c_in, oc_list = launch_geometry(launch, in_shape, conv_ocs)
     tile, why = card_tile(launch.stages, oh, ow, oc, c_in, oc_list,
-                          launch.tile)
+                          launch.tile[:3])
     if why:
         raise ValueError(
             f"launch {'+'.join(launch.nodes)}: tile record "
             f"{tuple(launch.tile)} does not run on this card ({why}); "
             f"re-run the tile search (tune.search_tile_shapes) on this card")
-    return tile
+    return choose_chain_tile(launch.stages, oh, ow, oc, c_in,
+                             max(1, int(in_shape[0])), oc_list, tile)
+
+
+def launch_plan_args(launch, in_shape, conv_ocs) -> dict:
+    """What a chain launch on an input of ``in_shape`` runs at, for its
+    device span: the images a block takes (``ni``) and the weight bytes the
+    planner charges its blocks with fetching (``w_fetch_bytes``)."""
+    oh, ow, oc, c_in, oc_list = launch_geometry(launch, in_shape, conv_ocs)
+    n = int(in_shape[0])
+    tile = launch_tile(launch, in_shape, conv_ocs) or choose_chain_tile(
+        launch.stages, oh, ow, oc, c_in, n, oc_list)
+    return {"ni": tile[3], "w_fetch_bytes": chain_fetch(
+        launch.stages, oh, ow, oc, c_in, oc_list, tile, n)}
 
 
 def run_launch(launch, env: dict, qm=None, prepared: dict | None = None,
@@ -811,8 +994,8 @@ def run_launch(launch, env: dict, qm=None, prepared: dict | None = None,
     """Execute one FusedLaunch; returns {tensor name: int8 tensor}.
 
     A chain launch with a tile record (``launch.tile``) runs at that
-    (th, tw, toc) — th and tw clamped to the output — and counts in
-    ``TILE_RECORDS``; a record the card cannot run raises
+    (th, tw, toc) — th and tw clamped to the output — with the chooser's
+    images a block at the call's batch, and counts in ``TILE_RECORDS``; a record the card cannot run raises
     (``launch_tile``).  Without one the card's chooser picks the tile.
 
     A horizontal launch's tile record is not applied on the card:

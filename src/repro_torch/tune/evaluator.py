@@ -26,9 +26,10 @@ kernel's work in interpret mode:
   it: cut where it reaches past what the first stage reads,
   ``ops._windows``), the elt sides' windows and the weight bytes the block
   reads: its panel, staged once by
-  ``cp.async``, or where the panel did not fit beside the windows, read
-  from device memory once per row of 16-pixel warp items (the reference
-  leaves weight panels out of ``rd``);
+  ``cp.async``, or where the panel did not fit beside the windows,
+  streamed through the weight ring once per pass of its tile along the
+  pixels of the block's images (``ops.ring_passes``; the reference leaves
+  weight panels out of ``rd``);
 * ``conv_steps`` counts the int8 ``mma.sync.m16n8k32`` instructions the
   blocks issue (``_plan_cost``'s issued work, padding included), in place of
   the reference's per-tap patch-matmul operand traffic;
@@ -85,41 +86,44 @@ def chain_geometry_of(g: XGraph, launch: lower.FusedLaunch) -> tuple:
 
 
 def chain_tile(g: XGraph, launch: lower.FusedLaunch) -> tuple:
-    """The (th, tw, toc) the card runs the launch at: its tile record as
-    ``card_tile`` clamps it, else the card's ``choose_chain_tile``."""
+    """The (th, tw, toc, ni) the card runs the launch at over ``g``'s
+    shapes: its tile record's (th, tw, toc) with the chooser's images a
+    block (``ops.launch_tile``), else the card's ``choose_chain_tile``."""
     oh, ow, oc, c_in, oc_list = chain_geometry_of(g, launch)
-    if launch.tile:
-        return fused_ops.card_tile(launch.stages, oh, ow, oc, c_in, oc_list,
-                                   launch.tile)[0]
-    return fused_ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in,
-                                       max(1, g.shape(launch.in_name)[0]),
-                                       oc_list)
+    in_shape = (max(1, g.shape(launch.in_name)[0]),
+                *g.shape(launch.in_name)[1:])
+    conv_ocs = [g.shape(st[1])[3] for st in launch.stages if st[0] == "conv"]
+    return fused_ops.launch_tile(launch, in_shape, conv_ocs) or (
+        fused_ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in,
+                                    in_shape[0], oc_list))
 
 
 def _chain_vec(g: XGraph, launch: lower.FusedLaunch):
     """Work one chain launch performs on the card (module docstring)."""
     chain = launch.stages
     oh, ow, oc, c_in, oc_list = chain_geometry_of(g, launch)
-    th, tw, toc = chain_tile(g, launch)
+    th, tw, toc, ni = chain_tile(g, launch)
     geom = fused_ops.chain_geometry(chain, th, oh, ow, tw)
     ch, last_conv = fused_ops._chain_channels(chain, c_in,
                                               lambda i: oc_list[i])
-    lay = fused_ops._layout(chain, geom, ch, last_conv, c_in, toc)
-    blocks = (max(1, g.shape(launch.in_name)[0]) * geom["n_h"] * geom["n_w"]
-              * (oc // toc))
+    lay = fused_ops._layout(chain, geom, ch, last_conv, c_in, toc, ni)
+    blocks = (-(-max(1, g.shape(launch.in_name)[0]) // ni) * geom["n_h"]
+              * geom["n_w"] * (oc // toc))
     cout = lay["cout"]
     per = np.zeros(len(COEF_NAMES))          # one block's work
-    per[_RD] = lay["windows"][0][0] * lay["windows"][0][1] * lay["in_c"]
-    per[_WR] = th * tw * toc
+    per[_RD] = (ni * lay["windows"][0][0] * lay["windows"][0][1]
+                * lay["in_c"])
+    per[_WR] = ni * th * tw * toc
     cin = lay["in_c"]
     for i, st in enumerate(chain):
-        px = lay["rows"][i] * lay["cols"][i]
+        px = ni * lay["rows"][i] * lay["cols"][i]
         if st[0] == "conv":
             nt = fused_ops.conv_nt(cout[i])
             m_items = -(-px // 16)
             kp = lay["kps"][i]
-            panel = fused_ops._align(cout[i], 8 * nt) * kp
-            per[_RD] += panel * (1 if i in lay["staged"] else m_items)
+            per[_RD] += (fused_ops._align(cout[i], 8 * nt) * kp
+                         if i in lay["staged"] else
+                         fused_ops.ring_passes(cout[i], px)[2] * cout[i] * kp)
             per[_CONV] += px * cin * st[2] * st[3] * cout[i]
             per[_CONV_STEPS] += (m_items * -(-cout[i] // (8 * nt))
                                  * (kp // 32) * nt)

@@ -53,10 +53,11 @@ def launch_oc(g: XGraph, item: lower.FusedLaunch) -> int:
 
 def default_shape(g: XGraph, item: lower.FusedLaunch) -> tuple | None:
     """The (t_h, t_w, t_oc) the card runs without a tile record: its
-    ``choose_chain_tile``; None for a horizontal launch (no tile)."""
+    ``choose_chain_tile`` at the graph's batch, without the images a block
+    takes; None for a horizontal launch (no tile)."""
     if item.kind == "horizontal":
         return None
-    return chain_tile(g, dataclasses.replace(item, tile=()))
+    return chain_tile(g, dataclasses.replace(item, tile=()))[:3]
 
 
 def analytic_shape(g: XGraph, dev: DeviceModel,

@@ -138,6 +138,40 @@ def test_chain_kernel_takes_every_chain_at_test_sizes(model, img, target):
         assert lengths == {10: 1}
 
 
+# the plans the card runs at 224: GoogLeNet and ResNet50 under ZU2, VGG16,
+# ResNet152 and YOLO-lite under both targets
+CARD_PLANS = [("googlenet", "ZU2"), ("resnet50", "ZU2")] + [
+    (model, target) for model in ("vgg16", "resnet152", "yolo_lite")
+    for target in TARGETS]
+
+
+@pytest.mark.parametrize("model,target", CARD_PLANS)
+def test_chain_tiles_fit_at_serving_batches(model, target):
+    """At batch 1, 8 and 64 the card's tile for every chain launch of the
+    224 plan — (th, tw, toc, ni), a block taking ni images — fits a block's
+    shared memory with the kernel's parameters within 4 KB; at batch 1 a
+    block takes one image, and never more than the batch."""
+    assert ops.CHAIN_PARAM_BYTES <= 4096
+    _, _, _, g, _, prog = _plans(model, 224, target)
+    for launch in prog.launches():
+        if launch.kind != "chain":
+            continue
+        conv_ocs = [g.shape(st[1])[3] for st in launch.stages
+                    if st[0] == "conv"]
+        oh, ow, oc, c_in, oc_list = ops.launch_geometry(
+            launch, g.shape(launch.in_name), conv_ocs)
+        for n in (1, 8, 64):
+            tile = ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in, n,
+                                         oc_list)
+            assert len(tile) == 4 and 1 <= tile[3] <= n
+            assert n > 1 or tile[3] == 1, (launch.nodes, tile)
+            desc, smem = ops.chain_plan(launch.stages, oh, ow, oc, c_in,
+                                        oc_list, tile)
+            assert 0 < smem <= ops.SMEM_MAX, (launch.nodes, n, tile)
+            assert len(desc) == ops.HDR + ops.STG * len(launch.stages)
+            assert len(launch.stages) <= ops.MAX_STAGES
+
+
 def test_too_long_a_chain_raises_with_the_cap():
     """A chain past ``MAX_STAGES`` raises in ``chain_plan`` with its length
     and the cap, and never reaches the kernel."""

@@ -10,8 +10,8 @@ import torch
 
 from repro_torch.core import int8_ops, lower
 from repro_torch.kernels.conv_fused import ops
-from torch_common import (CHAIN_HDR, GOOGLENET_HORIZONTAL, HAND_CHAINS,
-                          RAGGED_HORIZONTAL, emulate_chain_kernel,
+from torch_common import (CHAIN_HDR, CHAIN_STG, GOOGLENET_HORIZONTAL,
+                          HAND_CHAINS, RAGGED_HORIZONTAL, emulate_chain_kernel,
                           hand_chain_args, horizontal_args, port_model,
                           strategy)
 from torch_common import i8 as _i8
@@ -34,8 +34,9 @@ def test_card_tiles_fit_shared_memory_at_224(model):
     """Every 224 plan at batch 1 fits a block's shared memory (windows at
     their pixel strides, two weight panel buffers, the K-group table, laid
     out in that order on 16-byte boundaries), the planner's cost model
-    counts the same bytes, every launch that can give each of the 132 SMs a
-    block gets one, and every weight panel of GoogLeNet-224 is staged in
+    counts the same bytes, every launch gives at least half of the 132 SMs
+    a block, or half as many blocks as its output allows (a block takes one
+    image at batch 1), and every weight panel of GoogLeNet-224 is staged in
     shared memory."""
     from repro_torch.cnn import build
     g = build(model)
@@ -45,18 +46,19 @@ def test_card_tiles_fit_shared_memory_at_224(model):
             continue
         c_in, oc_list, oc = _chain_meta(g, launch)
         oh, ow = launch.out_hw
-        th, tw, toc = ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in,
-                                            1, oc_list)
-        assert 1 <= th <= oh and 1 <= tw <= ow and oc % toc == 0
+        th, tw, toc, ni = ops.choose_chain_tile(launch.stages, oh, ow, oc,
+                                                c_in, 1, oc_list)
+        assert 1 <= th <= oh and 1 <= tw <= ow and oc % toc == 0 and ni == 1
         desc, smem = ops.chain_plan(launch.stages, oh, ow, oc, c_in, oc_list,
-                                    (th, tw, toc))
+                                    (th, tw, toc, ni))
         assert 0 < smem <= ops.SMEM_MAX
         assert len(desc) == ops.HDR + ops.STG * len(launch.stages)
         h = dict(zip(CHAIN_HDR, desc[:len(CHAIN_HDR)].tolist()))
         assert 0 < h["buf_b"] <= h["w_off"] <= h["w1_off"] <= h["koff"] \
-            <= smem and all(h[f] % 16 == 0
-                           for f in ("buf_b", "w_off", "w1_off", "koff"))
-        assert model == "resnet50" or h["global_b"] == 0
+            <= h["ring_off"] <= smem and all(
+                h[f] % 16 == 0
+                for f in ("buf_b", "w_off", "w1_off", "koff", "ring_off"))
+        assert model == "resnet50" or h["ring_b"] == 0
         ch, last_conv = ops._chain_channels(launch.stages, c_in,
                                             lambda i: oc_list[i])
         geom = ops.chain_geometry(launch.stages, th, oh, ow, tw)
@@ -65,24 +67,86 @@ def test_card_tiles_fit_shared_memory_at_224(model):
         most = oh * ow * oc // min(t for t in (oc, oc // 2, oc // 4, oc // 8,
                                                64, 32, 16, 8)
                                    if t >= 1 and oc % t == 0)
-        assert h["n_h"] * h["n_w"] * h["n_k"] >= min(ops.N_SM, most), \
+        assert 2 * h["n_h"] * h["n_w"] * h["n_k"] >= min(ops.N_SM, most), \
             launch.nodes
 
 
+def test_vgg16_weight_fetch_at_batch_64():
+    """VGG16-224 under ZU2 at batch 64: the weight bytes the blocks of
+    executor items 1-7 (conv3 to conv13) fetch, by the planner's count at
+    the card's tiles, total at most 20 GB a batch (about 80 GB while every
+    oversized panel was read once per 16-pixel tile), and the oversized
+    panels stream through the ring."""
+    from repro_torch.cnn import build
+    g = build("vgg16")
+    prog = lower.lower_strategy(g, strategy("repro_torch", g), None)
+    total, rings = 0, 0
+    for i, launch in enumerate(prog.items[1:8], start=1):
+        assert launch.kind == "chain", i
+        conv_ocs = [g.shape(st[1])[3] for st in launch.stages
+                    if st[0] == "conv"]
+        oh, ow, oc, c_in, oc_list = ops.launch_geometry(
+            launch, (64,) + tuple(g.shape(launch.in_name)[1:]), conv_ocs)
+        tile = ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in, 64,
+                                     oc_list)
+        total += ops.chain_fetch(launch.stages, oh, ow, oc, c_in, oc_list,
+                                 tile, 64)
+        rings += int(ops.chain_plan(launch.stages, oh, ow, oc, c_in, oc_list,
+                                    tile)[0][31] != 0)
+    assert total <= 20e9 and rings == 7
+
+
+@pytest.mark.parametrize("n", [1, 64])
+def test_tile_record_takes_the_choosers_images(n):
+    """VGG16-224 under ZU2: a launch whose tile record is the chooser's own
+    (th, tw, toc) runs at the chooser's images a block at the call's batch,
+    as the untuned launch does (a record fixes the shape, not ``ni``), and
+    its span args agree; at batch 64 some launch takes more than one image
+    a block, at batch 1 none."""
+    import dataclasses
+    from repro_torch.cnn import build
+    g = build("vgg16")
+    prog = lower.lower_strategy(g, strategy("repro_torch", g), None)
+    nis = []
+    for launch in prog.launches():
+        if launch.kind != "chain":
+            continue
+        in_shape = (n,) + tuple(g.shape(launch.in_name)[1:])
+        conv_ocs = [g.shape(st[1])[3] for st in launch.stages
+                    if st[0] == "conv"]
+        oh, ow, oc, c_in, oc_list = ops.launch_geometry(launch, in_shape,
+                                                        conv_ocs)
+        untuned = ops.choose_chain_tile(launch.stages, oh, ow, oc, c_in, n,
+                                        oc_list)
+        tuned = dataclasses.replace(launch, tile=untuned[:3])
+        assert ops.launch_tile(tuned, in_shape, conv_ocs) == untuned
+        assert ops.launch_plan_args(tuned, in_shape, conv_ocs) == \
+            ops.launch_plan_args(launch, in_shape, conv_ocs)
+        nis.append(untuned[3])
+    assert (max(nis) > 1) == (n > 1)
+
+
 @pytest.mark.parametrize("i", range(len(HAND_CHAINS)))
-@pytest.mark.parametrize("tile", [None, (3, 5, 4), (1, 1, 8), (2, 3, 16)])
+@pytest.mark.parametrize("tile", [None, (3, 5, 4), (1, 1, 8), (2, 3, 16),
+                                  (3, 5, 4, 1), (3, 5, 4, 2), (2, 3, 16, 4)])
 def test_descriptor_walk_matches_plain(i, tile):
-    chain, x, w, b, sides, oh, ow, oc = hand_chain_args(i, np.random.default_rng(i))
+    """A hand chain's descriptor walked as the kernel walks it equals the
+    plain version: at batch 2 at the chooser's tile and at forced ones, and
+    at batch 3 at forced tiles of one, two and four images a block (groups
+    of 2 + 1 and of 3 images: the last group ragged)."""
+    n = 3 if tile is not None and len(tile) > 3 else 2
+    chain, x, w, b, sides, oh, ow, oc = hand_chain_args(
+        i, np.random.default_rng(i), n)
     conv_at = [j for j, st in enumerate(chain) if st[0] == "conv"]
     oc_list = [0] * len(chain)
     for j, t in zip(conv_at, w):
         oc_list[j] = t.shape[-1]
     if tile is None:
-        tile = ops.choose_chain_tile(chain, oh, ow, oc, x.shape[3], 2,
+        tile = ops.choose_chain_tile(chain, oh, ow, oc, x.shape[3], n,
                                      tuple(oc_list))
     else:
         toc = tile[2] if oc % tile[2] == 0 else oc
-        tile = (min(tile[0], oh), min(tile[1], ow), toc)
+        tile = (min(tile[0], oh), min(tile[1], ow), toc, *tile[3:])
     got = emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile)
     want = ops.fused_chain_plain(
         torch.as_tensor(x), [torch.as_tensor(t) for t in w],
@@ -140,24 +204,36 @@ def test_chain_weights_pack_in_kernel_layout(shape):
 
 def test_oversized_panels_read_from_device_memory():
     """A chain whose weight panels cannot all sit in shared memory beside
-    its windows reads the largest from device memory (bit i of the
-    header's ``global_b``), and the emulated kernel still equals the plain
-    version."""
+    its windows streams the largest through the weight ring (bit i of the
+    header's ``ring_b``; the ring's slots and barriers close the block's
+    shared memory), and the emulated kernel, the ring's passes and K slices
+    included, still equals the plain version: at batch 1 at the chooser's
+    tile, and at batch 3 with two images a block (a ragged last group),
+    where a pass's tile spans both images' pixels."""
     chain = (("conv", "a", 3, 3, 1, 1, 1, 1, 1, 1, 7, True, 6, 6),
              ("conv", "b", 1, 1, 1, 1, 0, 0, 1, 1, 5, False, 6, 6))
     rng = np.random.default_rng(5)
-    x = _i8(rng, (1, 6, 6, 512))
     w = [_i8(rng, (3, 3, 512, 256)), _i8(rng, (1, 1, 256, 16))]
     b = [rng.integers(-3000, 3000, t.shape[-1]).astype(np.int32) for t in w]
     oc_list = (256, 16)
-    tile = ops.choose_chain_tile(chain, 6, 6, 16, 512, 1, oc_list)
-    desc, smem = ops.chain_plan(chain, 6, 6, 16, 512, oc_list, tile)
-    assert desc[CHAIN_HDR.index("global_b")] == 1 and smem <= ops.SMEM_MAX
-    got = emulate_chain_kernel(x, w, b, [], chain, 6, 6, 16, tile)
-    want = ops.fused_chain_plain(
-        torch.as_tensor(x), [torch.as_tensor(t) for t in w],
-        [torch.as_tensor(t) for t in b], [], chain=chain, oh=6, ow=6, oc=16)
-    np.testing.assert_array_equal(got, want.numpy())
+    for n, tile in ((1, None), (3, (6, 6, 16, 2))):
+        x = _i8(rng, (n, 6, 6, 512))
+        if tile is None:
+            tile = ops.choose_chain_tile(chain, 6, 6, 16, 512, n, oc_list)
+        desc, smem = ops.chain_plan(chain, 6, 6, 16, 512, oc_list, tile)
+        h = dict(zip(CHAIN_HDR, desc[:len(CHAIN_HDR)].tolist()))
+        assert h["ring_b"] == 1 and smem <= ops.SMEM_MAX
+        assert h["ring_off"] + ops.ring_bytes(h["ring_ks"]) == smem
+        # the ring's tile spans the images: 36 pixels an image
+        st0 = dict(zip(CHAIN_STG, desc[ops.HDR:ops.HDR + ops.STG].tolist()))
+        px = h["ni"] * st0["rows"] * st0["cols"]
+        assert ops.ring_passes(256, px)[1] >= px
+        got = emulate_chain_kernel(x, w, b, [], chain, 6, 6, 16, tile)
+        want = ops.fused_chain_plain(
+            torch.as_tensor(x), [torch.as_tensor(t) for t in w],
+            [torch.as_tensor(t) for t in b], [], chain=chain, oh=6, ow=6,
+            oc=16)
+        np.testing.assert_array_equal(got, want.numpy())
 
 
 # ------------------------------------------------------------ the wrappers
@@ -174,7 +250,8 @@ def test_wrappers_take_plain_versions_only_on_cpu():
     ops.fused_horizontal(xh, wh, vec, vec + 3, vec + 1, stride=(1, 1),
                          pad=(0, 0))
     assert ops.PLAIN_CALLS == {"fused_chain": 1, "fused_horizontal": 1}
-    assert ops.LAUNCHES == {"fused_chain": 0, "fused_horizontal": 0}
+    assert ops.LAUNCHES == {"fused_chain": 0, "fused_horizontal": 0,
+                            "fused_chain_ring_stages": 0}
     # the kernel launchers never fall back: a CPU tensor is refused
     with pytest.raises(ValueError, match="no kernel"):
         ops._launch_chain(*args, chain=chain, oh=oh, ow=ow, oc=oc, tile=None)

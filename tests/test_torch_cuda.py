@@ -55,60 +55,77 @@ CARD_MODELS = [("googlenet", 64, "ZU2"), ("resnet50", 32, "ZU2")] + [
 def test_chain_kernel_matches_plain_on_model_launches(dev, model, img,
                                                       target):
     """Every chain launch of the model, weights packed once as the executor
-    packs them, at the planner's tile and at forced ones (ragged, one
-    pixel, half the channels), bit-equal to the plain version at batch 2;
-    ResNet50 at 32 includes chains whose weight panels are too large for
-    shared memory beside the rest (their B fragments come from device
-    memory)."""
+    packs them, bit-equal to the plain version: at batch 2 at the
+    planner's tile and at forced ones (ragged, one pixel, half the
+    channels), and at batch 5 at the planner's tile (several images a
+    block where it picks them), at its spatial tile with two and four
+    images a block and at a one-pixel tile with two (a ragged last group of
+    one), where they fit.  ResNet50 at 32 includes
+    chains whose weight panels are too large for shared memory beside the
+    rest (they stream through the weight ring)."""
     from torch_common import port_model
     g, qm, _ = port_model(model, img)
     prog = lower.lower_strategy(g, strategy("repro_torch", g, target=target),
                                 qm)
     rng = np.random.default_rng(3)
-    n_global = 0
+    n_ring = n_ragged = n_multi = 0
     for launch in prog.launches():
         if launch.kind != "chain":
             continue
         prep = ops.prepare_launch(launch, qm, dev)
-        x = torch.as_tensor(rng.integers(-128, 128, (2,) + tuple(
-            g.shape(launch.in_name)[1:])).astype(np.int8), device=dev)
-        if launch.fc_reshape:
-            x = x.reshape(2, 1, 1, -1)
-        sides = [torch.as_tensor(rng.integers(-128, 128, (2,) + tuple(
-            g.shape(sd)[1:])).astype(np.int8), device=dev)
-            for sd in launch.sides]
         w = prep["weights"]
-        oc = int(w[-1].shape[-1]) if w else int(x.shape[-1])
-        kw = dict(chain=launch.stages, oh=launch.out_hw[0],
-                  ow=launch.out_hw[1], oc=oc)
-        want = ops.fused_chain_plain(x, w, prep["biases"], sides, **kw)
-        oc_list = ops.launch_geometry(launch, g.shape(launch.in_name),
-                                      [t.shape[-1] for t in w])[4]
-        c_in = int(x.shape[-1])
-        for tile in (None, (3, 5, oc), (1, 1, oc),
-                     (2, 2, oc // 2 if oc % 2 == 0 else oc)):
-            ops.reset_counts()
-            why = tile and ops.card_tile(launch.stages, kw["oh"], kw["ow"],
-                                         oc, c_in, oc_list, tile)[1]
-            if why:      # a forced tile the card cannot run raises
-                with pytest.raises(ValueError, match="shared memory"):
-                    ops.fused_chain(x, w, prep["biases"], sides, **kw,
-                                    tile=tile, packed=prep["packed"])
-                assert not any(ops.LAUNCHES.values())
-                continue
-            got = ops.fused_chain(x, w, prep["biases"], sides, **kw,
-                                  tile=tile, packed=prep["packed"])
-            torch.cuda.synchronize()
-            assert ops.LAUNCHES["fused_chain"] == 1
-            assert torch.equal(got, want), (launch.nodes, tile)
-        desc = ops._chain_call(
-            launch.stages, kw["oh"], kw["ow"], oc, None,
-            (tuple(x.shape), x.stride()), tuple(tuple(t.shape) for t in w),
-            tuple(tuple(t.shape) for t in prep["biases"]),
-            tuple((tuple(sd.shape), sd.stride()) for sd in sides))[0]
-        n_global += int(desc[31] != 0)
+        for n in (2, 5):
+            x = torch.as_tensor(rng.integers(-128, 128, (n,) + tuple(
+                g.shape(launch.in_name)[1:])).astype(np.int8), device=dev)
+            if launch.fc_reshape:
+                x = x.reshape(n, 1, 1, -1)
+            sides = [torch.as_tensor(rng.integers(-128, 128, (n,) + tuple(
+                g.shape(sd)[1:])).astype(np.int8), device=dev)
+                for sd in launch.sides]
+            oc = int(w[-1].shape[-1]) if w else int(x.shape[-1])
+            kw = dict(chain=launch.stages, oh=launch.out_hw[0],
+                      ow=launch.out_hw[1], oc=oc)
+            want = ops.fused_chain_plain(x, w, prep["biases"], sides, **kw)
+            oc_list = ops.launch_geometry(launch, g.shape(launch.in_name),
+                                          [t.shape[-1] for t in w])[4]
+            c_in = int(x.shape[-1])
+            geom = ((tuple(x.shape), x.stride()),
+                    tuple(tuple(t.shape) for t in w),
+                    tuple(tuple(t.shape) for t in prep["biases"]),
+                    tuple((tuple(sd.shape), sd.stride()) for sd in sides))
+            desc = ops._chain_call(launch.stages, kw["oh"], kw["ow"], oc,
+                                   None, *geom)[0]
+            if n == 2:
+                tiles = (None, (3, 5, oc), (1, 1, oc),
+                         (2, 2, oc // 2 if oc % 2 == 0 else oc))
+                n_ring += int(desc[31] != 0)
+            else:
+                card = tuple(int(v) for v in desc[17:20])
+                tiles = (None, card + (2,), card + (4,), (1, 1, oc, 2))
+            for tile in tiles:
+                ops.reset_counts()
+                why = tile and ops.card_tile(launch.stages, kw["oh"],
+                                             kw["ow"], oc, c_in, oc_list,
+                                             tile)[1]
+                if why:      # a forced tile the card cannot run raises
+                    with pytest.raises(ValueError, match="shared memory"):
+                        ops.fused_chain(x, w, prep["biases"], sides, **kw,
+                                        tile=tile, packed=prep["packed"])
+                    assert not any(ops.LAUNCHES.values())
+                    continue
+                got = ops.fused_chain(x, w, prep["biases"], sides, **kw,
+                                      tile=tile, packed=prep["packed"])
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["fused_chain"] == 1
+                assert torch.equal(got, want), (launch.nodes, n, tile)
+                ni = int(ops._chain_call(
+                    launch.stages, kw["oh"], kw["ow"], oc,
+                    None if tile is None else tuple(tile), *geom)[0][34])
+                n_multi += int(ni > 1)
+                n_ragged += int(ni > 1 and n % ni != 0)
+    assert n_ragged > 0 or n_multi == 0
     if model in ("googlenet", "resnet50"):
-        assert (n_global > 0) == (model == "resnet50")
+        assert (n_ring > 0) == (model == "resnet50")
 
 
 @pytest.mark.parametrize("shape", GOOGLENET_HORIZONTAL + RAGGED_HORIZONTAL)

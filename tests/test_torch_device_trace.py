@@ -470,8 +470,17 @@ def test_executor_items_are_profiler_ranges_and_device_spans(vgg_executor):
     for i, (s, it) in enumerate(zip(spans, items)):
         kind = getattr(it, "kind", "fallback")
         out = getattr(it, "out_name", "") or it.nodes[-1]
+        plan = {}
+        if kind == "chain":     # the planner's images a block and bytes
+            plan = fused_ops.launch_plan_args(
+                it, (2,) + tuple(ex.g.shape(it.in_name)[1:]),
+                [ex.g.shape(st[1])[3] for st in it.stages
+                 if st[0] == "conv"])
+            assert plan["ni"] in (1, 2) and plan["w_fetch_bytes"] >= 0
+            assert (plan["w_fetch_bytes"] > 0) == any(
+                st[0] == "conv" for st in it.stages)
         assert s.args == {"batch_id": 4, "index": i, "kind": kind,
-                          "out": out, "batch": 2}
+                          "out": out, "batch": 2, **plan}
         assert s.duration >= 0
     assert {s.args["kind"] for s in spans} == {"chain", "fallback"}
 

@@ -212,7 +212,8 @@ def test_kernel_chain_vec_counts_from_the_descriptor(i, tile):
             kp, nt = int(s[16]), ops.conv_nt(cout)
             panel = -(-cout // (8 * nt)) * 8 * nt * kp
             staged = not (int(d[31]) >> j) & 1
-            rd += panel * (1 if staged else -(-rows * cols // 16))
+            rd += (panel if staged else
+                   ops.ring_passes(cout, rows * cols)[2] * cout * kp)
             conv += rows * cols * cin * st[2] * st[3] * cout
             steps += (-(-rows * cols // 16) * -(-cout // (8 * nt))
                       * (kp // 32) * nt)
@@ -356,7 +357,8 @@ def test_tuned_cpu_session_equals_reference_executor(model, img):
     assert sess.artifact.tile_shapes == rep.tile_shapes
     got = sess.run(xq)
     assert ops.TILE_RECORDS["applied"] == rep.n_tuned > 0
-    assert ops.LAUNCHES == {"fused_chain": 0, "fused_horizontal": 0}
+    assert ops.LAUNCHES == {"fused_chain": 0, "fused_horizontal": 0,
+                            "fused_chain_ring_stages": 0}
     for k in want:
         w, o = np.asarray(want[k]), got[k].numpy()
         assert o.dtype == w.dtype and o.shape == w.shape

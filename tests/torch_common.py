@@ -132,9 +132,9 @@ HAND_CHAINS = [
 ]
 
 
-def hand_chain_args(i, rng):
+def hand_chain_args(i, rng, n=2):
     chain, (h, w, c), wshape, sshape, oc = HAND_CHAINS[i]
-    x = i8(rng, (2, h, w, c))
+    x = i8(rng, (n, h, w, c))
     weights, biases = [], []
     cin = c
     for st in chain:
@@ -143,7 +143,7 @@ def hand_chain_args(i, rng):
             weights.append(i8(rng, shape))
             biases.append(rng.integers(-3000, 3000, shape[-1]).astype(np.int32))
             cin = shape[-1]
-    sides = [i8(rng, (2,) + sshape)] if sshape else []
+    sides = [i8(rng, (n,) + sshape)] if sshape else []
     last = chain[-1]
     oh, ow = ((last[12], last[13]) if last[0] == "conv" else
               (last[9], last[10]) if last[0] == "pool" else (last[5], last[6]))
@@ -154,7 +154,8 @@ def hand_chain_args(i, rng):
 # header, then one record per stage.
 CHAIN_HDR = ("n_stages N H W C x_sn x_sh x_sw in_rows in_cols in_c in_sliced "
              "f_in fw_in q_in0 q_in1 fill0 th tw toc n_h n_w n_k OH OW OC "
-             "buf_b in_ps w_off w1_off koff global_b in_or in_oc").split()
+             "buf_b in_ps w_off w1_off koff ring_b in_or in_oc ni "
+             "ring_off ring_ks").split()
 CHAIN_STG = ("type kh kw sh sw dh dw shift relu pkind cnt s_side rows cols "
              "cin cout kp sliced q0 q1 true_h true_w fout foutw fill_next "
              "out_buf side_h side_w side_sn side_sh side_sw ps or0 "
@@ -166,17 +167,45 @@ def _rshift(v, s):
             else v << -s)
 
 
+def _ring_acc(a, packed, c0, co, kp, ks, rot):
+    """A ring stage's accumulators as the kernel forms them: passes of a
+    BM x BN tile (``ops.ring_passes``; pixels inside channels), each over
+    the stage's K slices of ``ks`` bytes from slice ``rot`` on, read from a
+    slot that holds the pass's weight rows (a slot's rows past the stage's
+    channels feed only output columns the kernel drops).  The slices cover
+    K once and the passes every (pixel, channel) once; as integer sums do
+    not depend on their order, the stage is one product over K in order."""
+    from repro_torch.kernels.conv_fused import ops
+
+    m = a.shape[0]
+    bn, bm, mp, np_ = ops.ring_passes(co, m)
+    n_sl = -(-kp // ks)
+    starts = [(sl + rot) % n_sl * ks for sl in range(n_sl)]
+    assert sorted(starts) == list(range(0, kp, ks))
+    rows = [min(bm, m - mb * bm) for mb in range(mp)]
+    cols = [min(bn, co - nb * bn) for nb in range(np_)]
+    assert min(rows) > 0 and sum(rows) == m
+    assert min(cols) > 0 and sum(cols) == co
+    # int8 products summed in float64: exact, as every sum stays far below
+    # 2^53
+    return (a.astype(np.float64) @ packed[c0:c0 + co].T).astype(np.int64)
+
+
 def emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
     """What ``chain_kernel`` in csrc/conv_fused.cu computes from the packed
-    descriptor and the packed weights: per block, the halo'd window with
-    virtual padding stored at its pixel stride (the bytes past the channels
-    hold junk the kernel never writes), each conv stage as the tensor cores
-    see it — A words read at a pixel's offset plus the K-group offset
-    table's entry, B rows of the block's slice of ``pack_chain_weights`` —
-    pools and eltwise adds over the strided window, each window at its
-    origin (the tile's, or a cut window's own) with every read clamped
-    inside it, masking to the next stage's pad identity, and the final tile
-    written where it lies inside (OH, OW)."""
+    descriptor and the packed weights: per block, the halo'd windows of its
+    ``ni`` images (the last group ragged), one after another in each buffer
+    at 16-byte boundaries, with virtual padding, stored at their pixel
+    stride (the bytes past the channels hold junk the kernel never writes),
+    each conv stage as the tensor cores see it — A words read at a pixel's
+    offset plus the K-group offset table's entry over the pixels of all the
+    block's images, B rows of the block's slice of ``pack_chain_weights``,
+    staged whole or streamed through the ring pass by pass and K slice by K
+    slice (``_ring_acc``) — pools and eltwise adds over the strided window,
+    each window at its origin (the tile's, or a cut window's own) with
+    every read clamped inside it, masking to the next stage's pad identity,
+    and the final tile written where it lies inside (OH, OW).  ``tile`` is
+    (th, tw, toc) or (th, tw, toc, ni)."""
     import torch
 
     from repro_torch.kernels.conv_fused import ops
@@ -193,12 +222,26 @@ def emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
     st = [dict(zip(CHAIN_STG, desc[ops.HDR + ops.STG * i:][
         :len(CHAIN_STG)].tolist())) for i in range(len(chain))]
     assert h["buf_b"] % 16 == 0 and h["w_off"] % 16 == 0 \
-        and h["w1_off"] % 16 == 0
+        and h["w1_off"] % 16 == 0 and h["ring_off"] % 16 == 0
+    if h["ring_b"]:
+        assert h["ring_ks"] in ops.RING_KS
+        assert h["ring_off"] + ops.ring_bytes(h["ring_ks"]) == smem
+        assert h["ring_off"] >= h["koff"] + max(s["kp"] for s in st)
+    ni = h["ni"]
+    # each buffer holds ni windows of every stage that writes it
+    sizes = (h["buf_b"], h["w_off"] - h["buf_b"])
+    img_bytes = [-(-h["in_rows"] * h["in_cols"] * h["in_ps"] // 16) * 16]
+    for s in st[:-1]:
+        img_bytes.append(-(-s["rows"] * s["cols"] * s["ps"] // 16) * 16)
+    for k, nbytes in enumerate(img_bytes):
+        assert ni * nbytes <= sizes[k % 2]
+    # packed weights as float64 (exact for int8) once, for the products
     packed = {i: ops.pack_chain_weights(torch.as_tensor(t)).numpy().astype(
-        np.int64) for i, t in zip(conv_at, w)}
+        np.float64) for i, t in zip(conv_at, w)}
     bias = dict(zip(conv_at, b))
     smap = dict(zip([i for i, s in enumerate(chain) if s[0] == "elt"], sides))
     out = np.zeros((n_img, oh, ow, oc), np.int64)
+    written = np.zeros((n_img, oh, ow, oc), np.int64)
 
     def strided(vals, ps):
         """A (rows, cols, ch) window stored at pixel stride ps, flat."""
@@ -207,7 +250,8 @@ def emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
         flat[..., :chn] = vals
         return flat.reshape(-1)
 
-    for n in range(n_img):
+    for n0 in range(0, n_img, ni):
+        imgs = range(n0, min(n_img, n0 + ni))
         for j in range(h["n_h"]):
             for jw in range(h["n_w"]):
                 for k in range(h["n_k"]):
@@ -218,18 +262,21 @@ def emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
                     ch0 = k * h["toc"] if h["in_sliced"] else 0
                     inside = (((rows >= 0) & (rows < hh))[:, None]
                               & ((cols >= 0) & (cols < ww))[None, :])
-                    src = x[n][np.clip(rows, 0, hh - 1)][:, np.clip(
-                        cols, 0, ww - 1)][..., ch0:ch0 + h["in_c"]]
-                    src = np.where(inside[..., None], src.astype(np.int64),
-                                   h["fill0"])
-                    flat, ps_in, src_rows, src_cols = (
-                        strided(src, h["in_ps"]), h["in_ps"], h["in_rows"],
-                        h["in_cols"])
+                    flat = []
+                    for n in imgs:
+                        src = x[n][np.clip(rows, 0, hh - 1)][:, np.clip(
+                            cols, 0, ww - 1)][..., ch0:ch0 + h["in_c"]]
+                        src = np.where(inside[..., None],
+                                       src.astype(np.int64), h["fill0"])
+                        flat.append(strided(src, h["in_ps"]))
+                    ps_in, src_rows, src_cols = (h["in_ps"], h["in_rows"],
+                                                 h["in_cols"])
                     for i, s in enumerate(st):
                         c0 = k * h["toc"] if s["sliced"] else 0
                         R, C, CO = s["rows"], s["cols"], s["cout"]
-                        view = flat.reshape(-1, src_cols, ps_in)
-                        assert view.shape[2] >= s["cin"]
+                        views = [f.reshape(-1, src_cols, ps_in)
+                                 for f in flat]
+                        assert views[0].shape[2] >= s["cin"]
                         out_org = (s["or0"] if s["or0"] >= 0
                                    else j * s["fout"],
                                    s["oc0"] if s["oc0"] >= 0
@@ -243,6 +290,7 @@ def emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
                                      * s["sw"] - org[1], 0, src_cols
                                      - s["dw"] * (s["kw"] - 1) - 1)
                         org = out_org
+                        vs = []
                         if s["type"] == 0:
                             cinp = -(-s["cin"] // 4) * 4
                             kreal = s["kh"] * s["kw"] * cinp
@@ -255,61 +303,85 @@ def emulate_chain_kernel(x, w, b, sides, chain, oh, ow, oc, tile):
                             m = np.arange(R * C)
                             px = (row0[m // C] * src_cols
                                   + col0[m % C]) * ps_in
-                            a = flat[(px[:, None, None] + koff[None, :, None]
-                                      + np.arange(4)[None, None, :])]
-                            a = a.reshape(R * C, s["kp"])
-                            panel = packed[i][c0:c0 + CO]
-                            assert panel.shape[1] == s["kp"]
-                            # int8 products summed in float64: exact, as
-                            # every sum stays far below 2^53
-                            acc = (a.astype(np.float64) @ panel.T.astype(
-                                np.float64)).astype(np.int64)
-                            v = (acc + bias[i][c0:c0 + CO]).reshape(R, C, CO)
-                            v = _rshift(v, s["shift"])
-                        else:
-                            win = view[..., :s["cin"]]
+                            # A rows of every pixel of the block's images
+                            a = np.concatenate([f[(
+                                px[:, None, None] + koff[None, :, None]
+                                + np.arange(4)[None, None, :])].reshape(
+                                    R * C, s["kp"]) for f in flat])
+                            if (h["ring_b"] >> i) & 1:
+                                block = ((n0 // ni * h["n_h"] + j) * h["n_w"]
+                                         + jw) * h["n_k"] + k
+                                rot = block % -(-s["kp"] // h["ring_ks"])
+                                acc = _ring_acc(a, packed[i], c0, CO,
+                                                s["kp"], h["ring_ks"], rot)
+                            else:
+                                panel = packed[i][c0:c0 + CO]
+                                assert panel.shape[1] == s["kp"]
+                                # int8 products summed in float64: exact,
+                                # as every sum stays far below 2^53
+                                acc = (a.astype(np.float64)
+                                       @ panel.T).astype(np.int64)
+                            for g in range(len(flat)):
+                                v = (acc[g * R * C:(g + 1) * R * C]
+                                     + bias[i][c0:c0 + CO]).reshape(R, C, CO)
+                                vs.append(_rshift(v, s["shift"]))
+                        for g, n in enumerate(imgs):
+                            win = views[g][..., :s["cin"]]
 
                             def tap(ki, kj):
                                 return win[row0 + ki][:, col0 + kj]
-                        if s["type"] == 1:
-                            ws = [tap(ki, kj) for ki in range(s["kh"])
-                                  for kj in range(s["kw"])]
-                            if s["pkind"] == 0:
-                                v = np.max(ws, axis=0)
+                            if s["type"] == 1:
+                                ws = [tap(ki, kj) for ki in range(s["kh"])
+                                      for kj in range(s["kw"])]
+                                if s["pkind"] == 0:
+                                    v = np.max(ws, axis=0)
+                                else:
+                                    t = np.sum(ws, axis=0)
+                                    v = np.sign(t) * ((np.abs(t)
+                                                       + s["cnt"] // 2)
+                                                      // s["cnt"])
+                                vs.append(v)
+                            elif s["type"] == 2:
+                                side = smap[i][n].astype(np.int64)
+                                sr = org[0] + np.arange(R) - s["q0"]
+                                sc = org[1] + np.arange(C) - s["q1"]
+                                ok = (((sr >= 0) & (sr < side.shape[0]))[
+                                    :, None] & ((sc >= 0)
+                                                & (sc < side.shape[1]))[
+                                                    None, :])
+                                sv = side[np.clip(sr, 0, side.shape[0] - 1)][
+                                    :, np.clip(sc, 0, side.shape[1] - 1)][
+                                    ..., c0:c0 + CO]
+                                vs.append(_rshift(tap(0, 0), s["shift"])
+                                          + _rshift(np.where(ok[..., None],
+                                                             sv, 0),
+                                                    s["s_side"]))
+                        new_flat = []
+                        for g, n in enumerate(imgs):
+                            v = vs[g]
+                            if s["relu"]:
+                                v = np.maximum(v, 0)
+                            v = np.clip(v, -128, 127)
+                            if s["out_buf"] == 2:
+                                r0, cc0 = j * h["th"], jw * h["tw"]
+                                r1, c1 = min(oh, r0 + R), min(ow, cc0 + C)
+                                out[n, r0:r1, cc0:c1, c0:c0 + CO] = \
+                                    v[:r1 - r0, :c1 - cc0]
+                                written[n, r0:r1, cc0:c1, c0:c0 + CO] += 1
                             else:
-                                t = np.sum(ws, axis=0)
-                                v = np.sign(t) * ((np.abs(t) + s["cnt"] // 2)
-                                                  // s["cnt"])
-                        elif s["type"] == 2:
-                            side = smap[i][n].astype(np.int64)
-                            sr = org[0] + np.arange(R) - s["q0"]
-                            sc = org[1] + np.arange(C) - s["q1"]
-                            ok = (((sr >= 0) & (sr < side.shape[0]))[:, None]
-                                  & ((sc >= 0) & (sc < side.shape[1]))[None, :])
-                            sv = side[np.clip(sr, 0, side.shape[0] - 1)][
-                                :, np.clip(sc, 0, side.shape[1] - 1)][
-                                ..., c0:c0 + CO]
-                            v = (_rshift(tap(0, 0), s["shift"])
-                                 + _rshift(np.where(ok[..., None], sv, 0),
-                                           s["s_side"]))
-                        if s["relu"]:
-                            v = np.maximum(v, 0)
-                        v = np.clip(v, -128, 127)
-                        if s["out_buf"] == 2:
-                            r0, cc0 = j * h["th"], jw * h["tw"]
-                            r1, c1 = min(oh, r0 + R), min(ow, cc0 + C)
-                            out[n, r0:r1, cc0:c1, c0:c0 + CO] = \
-                                v[:r1 - r0, :c1 - cc0]
-                        else:
-                            pr = org[0] + np.arange(R)[:, None]
-                            pc = org[1] + np.arange(C)[None, :]
-                            valid = ((pr >= s["q0"]) & (pr < s["q0"] + s["true_h"])
-                                     & (pc >= s["q1"])
-                                     & (pc < s["q1"] + s["true_w"]))
-                            v = np.where(valid[..., None], v, s["fill_next"])
-                            assert s["ps"] % 4 == 0 and s["ps"] >= CO
-                            flat, ps_in, src_rows, src_cols = \
-                                strided(v, s["ps"]), s["ps"], R, C
+                                pr = org[0] + np.arange(R)[:, None]
+                                pc = org[1] + np.arange(C)[None, :]
+                                valid = ((pr >= s["q0"])
+                                         & (pr < s["q0"] + s["true_h"])
+                                         & (pc >= s["q1"])
+                                         & (pc < s["q1"] + s["true_w"]))
+                                v = np.where(valid[..., None], v,
+                                             s["fill_next"])
+                                assert s["ps"] % 4 == 0 and s["ps"] >= CO
+                                new_flat.append(strided(v, s["ps"]))
+                        flat, ps_in, src_rows, src_cols = (new_flat, s["ps"],
+                                                           R, C)
+    assert (written == 1).all()     # every output by exactly one block
     return out.astype(np.int8)
 
 
